@@ -1,0 +1,8 @@
+"""GLM-4-9B — RoPE, extreme GQA (kv=2) [hf:THUDM/glm-4-9b]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="glm4-9b", arch="dense",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=2,
+    d_ff=13696, vocab=151552, head_dim=128, rope_theta=1e4,
+)

@@ -1,0 +1,9 @@
+"""Qwen3-32B — qk_norm, GQA [hf:Qwen/Qwen3-8B family scaling]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-32b", arch="dense",
+    n_layers=64, d_model=5120, n_heads=64, n_kv_heads=8,
+    d_ff=25600, vocab=151936, head_dim=128,
+    qk_norm=True, rope_theta=1e6,
+)
