@@ -17,7 +17,8 @@ Phases, each printed as one JSON object per line:
    ``flash_attention_plain``; ``scaled_dot_product_attention`` is timed
    beside it as a yardstick only;
 5. small_parity — a reduced granite-8b served on the card and on the CPU
-   (plain versions) with the same weights: logits must agree;
+   (plain versions) with the same weights, fp32 and int8 pools: logits
+   must agree and only the card's run launches the kernels;
 6. serving  — granite-8b at full width and full depth in fp32 with
    seeded random weights: a ``BatchEngine`` admits 8
    sessions (two 2048-token prompts through the flash kernel, six short
@@ -258,35 +259,53 @@ def _drive(eng, sim, prompts, steps, feed=None):
 
 
 def small_parity_phase(torch):
-    """A reduced model on the card vs the plain versions on the CPU."""
+    """A reduced model served on the card (through both kernels) and on the
+    CPU (plain versions) with the same weights and token feed.  fp32: 1e-4.
+    int8: k/v differ by fp32 rounding between the devices, so an element on
+    a rounding edge can quantize one step apart: 1e-2, far below the
+    int8-vs-fp32 deviation."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.core.simnet import Sim
+    from repro_torch.kernels import ops
     from repro_torch.models import decoder
     from repro_torch.params import params_from_numpy, params_to_numpy
     from repro_torch.serving import BatchEngine, ShardModule
 
     cfg = get_config("granite-8b").reduced(n_layers=2, d_model=256, vocab=512)
+    L, steps = cfg.n_layers, 6
     gen = torch.Generator(device="cuda").manual_seed(2)
     params = decoder.init_params(cfg, gen, "cuda")
     cpu_params = params_from_numpy(params_to_numpy(params), "cpu")
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
                for n in (2048, 5, 40)]
-    runs = {}
-    for device, p in (("cuda", params), ("cpu", cpu_params)):
-        sim = Sim(seed=0)
-        eng = BatchEngine(ShardModule(cfg, p, (0, cfg.n_layers), True, True),
-                          sim, n_slots=4, page_size=32, device=device)
-        runs[device] = _drive(eng, sim, prompts, 6,
-                              None if device == "cuda" else runs["cuda"][4])
-    err = max(float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max()),
-              max(float(np.abs(a - b).max())
-                  for a, b in zip(runs["cuda"][2], runs["cpu"][2])))
-    require(err <= 1e-4, f"card vs CPU logits differ by {err}")
+    errs = {}
+    for kv_dtype, tol in (("fp32", 1e-4), ("int8", 1e-2)):
+        runs, counts = {}, {}
+        for device, p in (("cuda", params), ("cpu", cpu_params)):
+            sim = Sim(seed=0)
+            eng = BatchEngine(ShardModule(cfg, p, (0, L), True, True), sim,
+                              n_slots=4, page_size=32, kv_dtype=kv_dtype,
+                              device=device)
+            ops.reset_launch_counts()
+            runs[device] = _drive(eng, sim, prompts, steps,
+                                  None if device == "cuda" else runs["cuda"][4])
+            counts[device] = ops.launch_counts()
+        require(counts["cuda"] == {"paged_decode_attention": L * steps,
+                                   "flash_attention": L}
+                and not any(counts["cpu"].values()),
+                f"small_parity {kv_dtype} launches: {counts}")
+        errs[kv_dtype] = max(
+            float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max()),
+            max(float(np.abs(a - b).max())
+                for a, b in zip(runs["cuda"][2], runs["cpu"][2])))
+        require(errs[kv_dtype] <= tol,
+                f"card vs CPU {kv_dtype} logits differ by {errs[kv_dtype]}")
     emit({"phase": "small_parity", "config": "granite-8b reduced(L=2, d=256, "
-          "vocab=512)", "max_abs_logit_err": err, "tolerance": 1e-4})
+          "vocab=512)", "max_abs_logit_err": errs,
+          "tolerance": {"fp32": 1e-4, "int8": 1e-2}})
 
 
 def serving_phase(torch):
@@ -297,6 +316,7 @@ def serving_phase(torch):
     from repro_torch.kernels import ops
     from repro_torch.models import decoder
     from repro_torch.serving import BatchEngine, ShardModule
+    from repro_torch.serving.sharded import _leaves
 
     cfg = get_config("granite-8b")
     L = cfg.n_layers
@@ -413,12 +433,6 @@ def profile_decode(torch, module, prompts, feed, steps: int = 4):
               {"name": name[:80], "calls_per_step": n / steps,
                "ms_per_step": us / steps / 1e3}
               for us, n, name in kernels[:12]]})
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
 
 
 def main() -> int:
