@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the repo's serving path (dense decoder, paged KV).
+"""PyTorch/CUDA port of the repo's serving path (dense and MoE decoders,
+paged KV).
 
 Layout mirrors ``repro``: ``models/``, ``kernels/``, ``serving/``,
 ``launch/``, ``configs/``, ``core/``.  The port imports ``torch`` and

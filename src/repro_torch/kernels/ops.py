@@ -11,11 +11,12 @@ show which kernels a run went through.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import flash_attention as _flash
+from . import moe_gating as _gating
 from . import paged_attention as _paged
 
 
@@ -55,11 +56,20 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
               k_scales, v_scales)
 
 
+def moe_gating(logits: torch.Tensor, k: int,
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """logits (T, E) -> (weights (T,k), experts (T,k) int32, probs (T,E))."""
+    fn = _gating.moe_gating_cuda if _route(logits) else _gating.moe_gating_plain
+    return fn(logits, k)
+
+
 def launch_counts() -> Dict[str, int]:
     return {"paged_decode_attention": _paged.launches,
-            "flash_attention": _flash.launches}
+            "flash_attention": _flash.launches,
+            "moe_gating": _gating.launches}
 
 
 def reset_launch_counts() -> None:
     _paged.launches = 0
     _flash.launches = 0
+    _gating.launches = 0

@@ -1,5 +1,5 @@
 """Model zoo of the port: ``ops_for(cfg)`` returns the entry points that
-serving programs against.  Only the dense decoder is ported so far.
+serving programs against.  The dense and MoE decoders are ported so far.
 
     init(cfg, generator, device, dtype) -> params
     forward(params, cfg, batch)         -> (logits, aux)
@@ -34,7 +34,7 @@ _DECODER_OPS = ModelOps(
 
 
 def ops_for(cfg: ModelConfig) -> ModelOps:
-    decoder.require_dense(cfg)
+    decoder.require_ported(cfg)
     return _DECODER_OPS
 
 

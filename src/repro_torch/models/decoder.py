@@ -1,4 +1,4 @@
-"""Decoder-only model, dense architecture.
+"""Decoder-only model: the dense and MoE architectures.
 
 Parameters are a dict of tensors in the JAX package's tree layout, with
 per-layer weights stacked on a leading layer axis, so the weight bridge
@@ -8,9 +8,12 @@ per-layer weights stacked on a leading layer axis, so the weight bridge
   * ``prefill``      — full sequence, filling a decode cache
   * ``decode_step``  — one token against the cache
 
-Other architectures (moe, ssm, hybrid, vlm, audio) are later slices of
-the port and raise ``NotImplementedError``.  KV caches are updated in
-place (see :mod:`.common`).
+An MoE block replaces the MLP with :func:`.moe.run_moe`, without token
+drops when it runs against a cache (prefill and decode), and its
+load-balance loss is summed over the layers.  Other architectures (ssm,
+hybrid, vlm, audio) are later slices of the port and raise
+``NotImplementedError``.  KV caches are updated in place (see
+:mod:`.common`).
 """
 
 from __future__ import annotations
@@ -23,13 +26,17 @@ from ..core.device import resolve_device
 from .common import (Params, dense_init, init_attention, init_mlp, rms_norm,
                      run_attention, run_mlp)
 from .config import ModelConfig
+from .moe import init_moe, run_moe, switch_aux
+
+#: architectures this module implements so far
+PORTED_ARCHS = ("dense", "moe")
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.arch != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.arch not in PORTED_ARCHS:
         raise NotImplementedError(
             f"arch {cfg.arch!r} ({cfg.name}) is not ported yet; the port "
-            "serves the dense decoder")
+            f"serves the decoder archs {PORTED_ARCHS}")
 
 
 def layer_params(tree: Any, j: int) -> Any:
@@ -49,7 +56,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights with the JAX package's scales (embed 0.02, else
     ``1/sqrt(fan_in)``).  The draws come from ``generator``, which must
     live on ``device``; they differ from JAX's draws."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     L, D = cfg.n_layers, cfg.d_model
     params: Params = {
@@ -62,8 +69,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "ln1": torch.ones((L, D), device=dev, dtype=dtype),
         "attn": init_attention(cfg, generator, dev, dtype, L),
         "ln2": torch.ones((L, D), device=dev, dtype=dtype),
-        "mlp": init_mlp(generator, D, cfg.d_ff, dev, dtype, L),
     }
+    if cfg.arch == "moe":
+        params["blocks"]["moe"] = init_moe(cfg, generator, dev, dtype, L)
+    else:
+        params["blocks"]["mlp"] = init_mlp(generator, D, cfg.d_ff, dev,
+                                           dtype, L)
     return params
 
 
@@ -78,14 +89,20 @@ def run_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
               layer_idx: int = 0,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
     """One transformer block.  Returns (x, new_cache, aux_loss)."""
-    require_dense(cfg)
+    require_ported(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     kv = (cache["k"], cache["v"]) if cache is not None else None
     attn_out, new_kv = run_attention(p["attn"], cfg, h, positions, kv, cache_len)
     x = x + attn_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + run_mlp(p["mlp"], h)
+    if cfg.arch == "moe":
+        ffn_out, probs, experts = run_moe(p["moe"], cfg, h,
+                                          no_drop=cache is not None)
+        aux = switch_aux(cfg, probs, experts)
+    else:
+        ffn_out = run_mlp(p["mlp"], h)
+    x = x + ffn_out
     new_cache = None
     if cache is not None:
         new_cache = {"k": new_kv[0], "v": new_kv[1]}
@@ -110,7 +127,7 @@ def _head(params: Params) -> torch.Tensor:
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits.  Returns (logits (B,S,V), aux_loss)."""
-    require_dense(cfg)
+    require_ported(cfg)
     x, positions = _embed(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(cfg.n_layers):
@@ -130,7 +147,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Dense cache: per-layer k/v stacked as (L, B, T, Hk, hd) and a host
     ``int`` length."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     L, Hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     kv_len = min(max_len, cfg.window) if cfg.window else max_len
@@ -160,7 +177,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the prompt through the model, filling the cache.
     Returns (last-position logits (B,V), cache)."""
-    require_dense(cfg)
+    require_ported(cfg)
     x, positions = _embed(cfg, params, batch)
     x, cache = apply_layers_cached(params["blocks"], cfg, x, positions, cache)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -170,7 +187,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: token (B,) int -> (logits (B,V), cache)."""
-    require_dense(cfg)
+    require_ported(cfg)
     B = token.shape[0]
     x = params["embed"][token.long()[:, None]]
     positions = torch.full((B, 1), cache["len"], dtype=torch.int32,

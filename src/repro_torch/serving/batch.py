@@ -13,20 +13,27 @@ parity) alongside the result.
 
 Two decode paths share the slot table:
 
-* **Fused paged decode** (the dense arch; no mrope, no sliding window).
-  KV lives in an engine-owned page pool on the device — per layer
+* **Fused paged decode** (the dense and MoE archs; no mrope, no sliding
+  window).  KV lives in an engine-owned page pool on the device — per layer
   ``(P, page, Hk, hd)`` tensors stacked as ``(L, P, page, Hk, hd)``, plus
   a free-page list — and each slot holds a block table of page ids.  One
   step advances every live slot: per layer, project q/k/v for the whole
   batch and run paged single-query attention
   (:func:`repro_torch.kernels.ops.paged_decode_attention`) over the block
-  tables; then the step's k/v are written into the pool in place.
+  tables, then the MLP, or for MoE the routed experts without token
+  drops; then the step's k/v are written into the pool in place.
   ``kv_dtype="int8"`` stores pages quantized (per-page per-kv-head
   scales, dequantized in the attention kernel); the partial page keeps an
   fp32 staging tail per slot, and appends requantize it on the device.
 
 * **Per-slot path** (``fused=False``): one batch-1 ``module.apply`` per
   session per token over a dense cache grown by whole pages.
+
+Order of work, which ``chip_smoke.py`` relies on to pair two runs' MoE
+gating calls: ``open`` prefills its prompt through every layer in turn; a
+fused step runs the layers in turn, each over all the step's sessions in
+the order of ``sessions``; a per-slot step runs the sessions in that
+order, each through every layer.
 
 Unlike the JAX engine, the pool is never copied between host and device:
 the JAX engine re-uploads the whole pool every step and appends on the
@@ -48,6 +55,7 @@ from ..core.device import resolve_device
 from ..core.simnet import Sim
 from ..kernels.ops import paged_decode_attention
 from ..models.common import apply_rope, rms_norm, run_mlp
+from ..models.moe import run_moe
 
 __all__ = ["BatchEngine", "KVPool", "SlotState", "PEER_FLOPS", "PEER_BW"]
 
@@ -58,7 +66,7 @@ PEER_FLOPS = 2.0e11
 PEER_BW = 8.0e10
 
 #: archs the fused paged-decode path supports in this port
-_FUSED_ARCHS = ("dense",)
+_FUSED_ARCHS = ("dense", "moe")
 
 #: distinguishes each engine's leak gauge within one Sim
 _ENGINE_SEQ = itertools.count()
@@ -183,10 +191,10 @@ def _fused_block(cfg: Any, p: Any, x: torch.Tensor, positions: torch.Tensor,
                  vp: torch.Tensor, ks: Optional[torch.Tensor],
                  vs: Optional[torch.Tensor],
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One dense block for a batch of single-token rows, with KV read from
-    the page pool.  Mirrors ``decoder.run_block``'s decode math (rms_norm ->
-    q/k/v -> qk_norm -> rope -> masked softmax over the cache -> wo ->
-    residual -> ln2 -> mlp).  Returns (x, k_new, v_new)."""
+    """One dense or MoE block for a batch of single-token rows, with KV
+    read from the page pool.  Mirrors ``decoder.run_block``'s decode math
+    (rms_norm -> q/k/v -> qk_norm -> rope -> masked softmax over the cache
+    -> wo -> residual -> ln2 -> mlp/moe).  Returns (x, k_new, v_new)."""
     ap = p["attn"]
     B = x.shape[0]
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -204,7 +212,11 @@ def _fused_block(cfg: Any, p: Any, x: torch.Tensor, positions: torch.Tensor,
                                   k0, v0, ks, vs)             # (B, H, hd)
     x = x + attn.reshape(B, 1, H * hd) @ ap["wo"]
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + run_mlp(p["mlp"], h2), k0, v0
+    if cfg.arch == "moe":
+        ffn, _, _ = run_moe(p["moe"], cfg, h2, no_drop=True)
+    else:
+        ffn = run_mlp(p["mlp"], h2)
+    return x + ffn, k0, v0
 
 
 class BatchEngine:

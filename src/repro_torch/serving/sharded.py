@@ -41,7 +41,7 @@ def split_params(cfg: ModelConfig, params: Any,
                  plan: List[Tuple[int, int]]) -> List[Dict[str, Any]]:
     """Per-shard param subsets (first gets embed, last gets norm+head).
     Layer slices are views of the stacked tensors."""
-    decoder.require_dense(cfg)
+    decoder.require_ported(cfg)
     shards = []
     for i, (lo, hi) in enumerate(plan):
         sub: Dict[str, Any] = {"blocks": _slice_layers(params["blocks"], lo, hi)}
@@ -68,7 +68,7 @@ class ShardModule:
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
                  layer_range: Tuple[int, int], is_first: bool, is_last: bool):
-        decoder.require_dense(cfg)
+        decoder.require_ported(cfg)
         self.cfg = cfg
         self.params = params
         self.lo, self.hi = layer_range

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.moe_gating import moe_gating_cuda, moe_gating_plain
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.serving.batch import _quant_page_int8
@@ -65,6 +66,19 @@ def _flash_inputs(B, H, Sq, Sk, hd, dtype, device, seed=0):
             .transpose(1, 2) for S in (Sq, Sk, Sk)]
 
 
+def _gating_logits(T, E, device, seed=0, ties=False):
+    """Router logits; with ``ties`` every column is duplicated once (and
+    one row is uniform) so equal probabilities must go lowest index first."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        half = rng.normal(size=(T, E // 2)) * 2
+        x = np.concatenate([half, half], axis=1)
+        x[0] = 0.25
+    else:
+        x = rng.normal(size=(T, E)) * 2
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
 # ------------------------------------------------------------------ on the CPU
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -85,6 +99,22 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="one card"):
         flash_attention_cuda(*_flash_inputs(1, 2, 16, 16, 64, torch.float32,
                                             "cpu"))
+
+
+def test_gating_on_the_cpu_takes_the_plain_version():
+    """Any E and k take the plain version on the CPU: the kernel's limits
+    (E <= 64, k <= 8) bind only on the card."""
+    before = ops.launch_counts()
+    for E, k in ((60, 4), (65, 4), (16, 9)):
+        x = _gating_logits(7, E, "cpu", seed=E)
+        got, want = ops.moe_gating(x, k), moe_gating_plain(x, k)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.launch_counts() == before
+
+
+def test_gating_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="on a card"):
+        moe_gating_cuda(_gating_logits(8, 60, "cpu"), 4)
 
 
 # ------------------------------------------------------------------ on the card
@@ -120,3 +150,35 @@ def test_flash_cuda_matches_plain(cuda, Sq, Sk, causal, window, dtype, hd):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert (got.float() - want.float()).abs().max().item() <= tol
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 8, 2048, 2050])
+@pytest.mark.parametrize("E,K", [(60, 4), (16, 4), (64, 8)])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_gating_cuda_matches_plain(cuda, T, E, K, ties):
+    """Ids exactly; weights and probabilities within 1e-6 (the softmax
+    sums in another order)."""
+    x = _gating_logits(T, E, cuda, seed=T + E, ties=ties)
+    before = ops.launch_counts()["moe_gating"]
+    w, ids, probs = ops.moe_gating(x, K)
+    assert ops.launch_counts()["moe_gating"] == before + 1
+    wp, ip, pp = moe_gating_plain(x, K)
+    torch.cuda.synchronize()
+    assert ids.dtype == torch.int32 and torch.equal(ids, ip)
+    assert (w - wp).abs().max().item() <= 1e-6
+    assert (probs - pp).abs().max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,K", [(65, 4), (16, 9), (4, 5)])
+def test_gating_cuda_refuses_what_one_warp_cannot_hold(cuda, E, K):
+    """On the card there is no hand-over to the plain version."""
+    before = ops.launch_counts()["moe_gating"]
+    with pytest.raises(ValueError, match="moe_gating_cuda"):
+        ops.moe_gating(_gating_logits(8, E, cuda), K)
+    with pytest.raises(ValueError, match="float32"):
+        ops.moe_gating(_gating_logits(8, 60, cuda).double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.moe_gating(_gating_logits(60, 8, cuda).T, 4)
+    assert ops.launch_counts()["moe_gating"] == before
