@@ -37,7 +37,32 @@ Phases, each printed as one JSON object per line:
    and depth in fp32 (14.3 B parameters) served the same way, every
    layer's router gating through the gating kernel: launch counts, page
    accounting, timings, peak memory, the per-slot replay within 1e-3,
-   and a profile of a few steps.
+   and a profile of a few steps;
+9. serving_xlstm — qwen2-moe-a2.7b released, then xlstm-1.3b at full width
+   and depth in fp32 (5.64 B parameters) served per slot, every prefill's
+   mLSTM layers through the mLSTM kernel, under gate G3; then the state
+   handoff, layer by layer and end to end, with gate G1 on the kernel's
+   real inputs in every mLSTM layer, and a profile of a few steps.
+
+The mlstm phase (after moe_gating) holds the mLSTM kernel to gate G1 at
+xlstm-1.3b's widths, and small_parity also serves a reduced xlstm-1.3b on
+the card and on the CPU in float32 and float64 under gate G2.  The gates'
+bounds are fixed in advance, each derived from a float64 reference:
+
+* G1, kernel vs plain, on the card: with ``ref`` the plain version in
+  float64 and ``p32`` the plain version in float32 on the same inputs,
+  max|h - ref| <= 2 max|h_p32 - ref| + 1e-6 max|ref|; C and n within
+  2e-5 of their largest reference entry; |m - m_ref| <= 2e-5 max(1,
+  |m_ref|).
+* G2, reduced xlstm-1.3b, card vs CPU, over every prefill's and step's
+  logits: max|card32 - cpu64| <= max(1e-4, 2 max|cpu32 - cpu64|).
+* G3, full width on the card: finite logits; mlstm_scan launched 42 times
+  per prefill of the served run; pages 0 after close; 807,666,432 state
+  bytes per session; fed each layer the same input, prefill(2047) + one
+  decode step against prefill(2048) leaves the mLSTM C and n and the
+  sLSTM c, n and h within 1e-4 of their largest entry and every m within
+  1e-4; and the end-to-end logits of the two routes differ by no more
+  than one ulp of the input embeddings moves prefill(2048)'s.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -69,6 +94,15 @@ FP32_SIMT_FLOPS = 67e12
 PAGED_LENGTHS = [0, 31, 32, 33, 100, 2047, 2048, 2069]
 SERVE_PROMPTS = [2048, 2048, 12, 37, 64, 100, 200, 256]
 SERVE_STEPS = 32
+#: xlstm-1.3b: one 2048-token prompt (8 chunks of 256 in the JAX model),
+#: one ragged (one chunk of 300) and six short ones
+XLSTM_PROMPTS = [2048, 300, 12, 37, 64, 100, 200, 256]
+#: the reduced xlstm's prompts: the ragged W = S form and two full chunks
+XLSTM_SMALL_PROMPTS = [12, 37, 64, 100, 200, 256, 300, 512]
+XLSTM_SMALL_STEPS = 16
+#: xlstm-1.3b's recurrent state of one session: per layer C (4, 1024,
+#: 1024), n (4, 1024), m (4) and the sLSTM's four (4, 512), in fp32
+XLSTM_STATE_BYTES = 807_666_432
 GATING_T = (1, 8, 2048, 2050)
 GATING_EK = ((60, 4), (16, 4), (64, 8))
 #: two runs of one feed may route a token differently only where its K-th
@@ -313,12 +347,121 @@ def gating_phase(torch, flush):
     return res
 
 
+def mlstm_inputs(torch, B, H, S, hd, state, g):
+    """The JAX kernel test's distributions, on the card: q, k (pre-scaled
+    by 1/sqrt(hd)), v, log i ~ N(0,1), log f = log_sigmoid(N(0,1) + 2);
+    the start state "empty" (m = -1e30), "cache" (a serving cache's zeros,
+    m = 0) or "warm" (0.1·N(0,1) memory, m = 0.5)."""
+    dev = "cuda"
+    q, k, v = (torch.randn((B, H, S, hd), generator=g, device=dev)
+               for _ in range(3))
+    li = torch.randn((B, H, S), generator=g, device=dev)
+    lf = torch.nn.functional.logsigmoid(
+        torch.randn((B, H, S), generator=g, device=dev) + 2.0)
+    C0 = torch.zeros((B, H, hd, hd), device=dev)
+    n0 = torch.zeros((B, H, hd), device=dev)
+    if state == "warm":
+        C0 = 0.1 * torch.randn((B, H, hd, hd), generator=g, device=dev)
+        n0 = 0.1 * torch.randn((B, H, hd), generator=g, device=dev)
+    m0 = torch.full((B, H), {"empty": -1e30, "cache": 0.0, "warm": 0.5}[state],
+                    device=dev)
+    return [q, k / hd ** 0.5, v, li, lf, C0, n0, m0]
+
+
+def mlstm_g1(torch, out, args):
+    """Gate G1 on the kernel's outputs ``out`` for ``args``: the plain
+    version in float64 on the card is ``ref``, in float32 ``p32``.  h:
+    max|h - ref| <= 2 max|h_p32 - ref| + 1e-6 max|ref|; C and n within
+    2e-5 of their largest reference entry; m within 2e-5 max(1, |m_ref|).
+    Returns the readings, each ``*_over_limit`` <= 1 on a pass."""
+    from repro_torch.kernels import mlstm_scan as ms
+
+    p32 = ms.mlstm_scan_plain(*args)
+    ref = ms.mlstm_scan_plain(*(a.double() for a in args))
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(t).all()) for t in out),
+            "mlstm: non-finite kernel output")
+
+    def err(a, b):
+        return (a.double() - b).abs().max().item()
+
+    h_abs, p32_abs = err(out[0], ref[0]), err(p32[0], ref[0])
+    h_limit = 2 * p32_abs + 1e-6 * ref[0].abs().max().item()
+    res = {"h_abs": h_abs, "h_plain_fp32_abs": p32_abs, "h_limit": h_limit,
+           "h_over_limit": h_abs / h_limit}
+    for name, a, b in zip("Cn", out[1:3], ref[1:3]):
+        res[f"{name}_rel"] = err(a, b) / b.abs().max().item()
+        res[f"{name}_over_limit"] = res[f"{name}_rel"] / 2e-5
+    res["m_abs"] = err(out[3], ref[3])
+    res["m_over_limit"] = ((out[3].double() - ref[3]).abs()
+                           / (2e-5 * ref[3].abs().clamp_min(1.0))).max().item()
+    return res
+
+
+def g1_holds(res) -> bool:
+    return all(v <= 1.0 for k, v in res.items() if k.endswith("_over_limit"))
+
+
+def mlstm_work(B, H, S, hd):
+    """The TPU kernel's four products at full W x W (no causal saving),
+    W by the model's chunk rule, and the bytes each input and output
+    moves once."""
+    W = 256 if S % 256 == 0 else S
+    flops = B * H * (S // W) * (4 * W * W * hd + 4 * W * hd * hd)
+    nbytes = 4 * (4 * B * H * S * hd + 2 * B * H * S + 2 * B * H * hd * hd
+                  + 2 * B * H * hd + 2 * B * H)
+    return flops, nbytes
+
+
+#: (name, B, H, S, hd, start): xlstm-1.3b's widths (H = 4, hd = 1024) for
+#: a 2048-token prompt from a serving cache, a ragged prompt, a batch from
+#: a warm state and one decode row, then the JAX kernel test's fp32 shapes
+MLSTM_CASES = [("S2048_cache", 1, 4, 2048, 1024, "cache"),
+               ("S300_cache", 1, 4, 300, 1024, "cache"),
+               ("B2_S512_warm", 2, 4, 512, 1024, "warm"),
+               ("S1_warm", 1, 4, 1, 1024, "warm"),
+               ("jax_1x1x128x64", 1, 1, 128, 64, "empty"),
+               ("jax_2x2x256x64", 2, 2, 256, 64, "empty"),
+               ("jax_1x2x256x128", 1, 2, 256, 128, "empty"),
+               ("jax_2x1x512x256", 2, 1, 512, 256, "empty")]
+
+
+def mlstm_phase(torch, flush):
+    """The mLSTM kernel under gate G1 at every case, with its time (cold
+    L2), the plain version's, and the bound from the TPU kernel's work."""
+    from repro_torch.kernels import mlstm_scan as ms
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = {}
+    for name, B, H, S, hd, start in MLSTM_CASES:
+        args = mlstm_inputs(torch, B, H, S, hd, start, g)
+        res = mlstm_g1(torch, ms.mlstm_scan_cuda(*args), args)
+        require(g1_holds(res), f"mlstm {name}: gate G1 fails: {res}")
+        flops, nbytes = mlstm_work(B, H, S, hd)
+        t_ops = flops / PEAK_FLOPS["float32"]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        res.update({
+            "kernel_ms": time_ms(torch, lambda: ms.mlstm_scan_cuda(*args),
+                                 iters=10, flush=flush),
+            "plain_ms": time_ms(torch, lambda: ms.mlstm_scan_plain(*args),
+                                iters=5, flush=flush),
+            "flop": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+        cases[name] = res
+        del args
+    # no single PyTorch call computes the chunkwise mLSTM recurrence
+    emit({"phase": "mlstm", "cases": cases, "library_ms": None})
+    return cases
+
+
 # --------------------------------------------------------------- serving
 
 def _drive(eng, sim, prompts, steps, feed=None):
     """Open every session, decode ``steps`` greedy steps (or replay
     ``feed``), close.  Returns per-prompt prefill logits and seconds, the
-    per-step logits and seconds, and the token feed."""
+    per-step logits and seconds, the token feed, and each session's cache
+    bytes before the close."""
     import numpy as np
 
     sessions = [f"s{i}" for i in range(len(prompts))]
@@ -339,8 +482,9 @@ def _drive(eng, sim, prompts, steps, feed=None):
         require(served == sessions, "a session was dropped")
         logits.append(out)
         toks = np.argmax(out, axis=-1).astype(np.int32)
+    held = [eng._slot_kv_bytes(eng.by_session[sid]) for sid in sessions]
     eng.close(sessions)
-    return np.stack(first), prefill_s, logits, step_s, fed
+    return np.stack(first), prefill_s, logits, step_s, fed, held
 
 
 @contextlib.contextmanager
@@ -455,11 +599,21 @@ def logit_diff(run_a, run_b, reach):
 
 def expected_launches(cfg, prompts, steps):
     """Every kernel launch of one served run: paged attention per layer per
-    step, flash per layer per long prompt, gating per layer per pass."""
+    step, flash per layer per long prompt, gating per layer per pass; for
+    xLSTM (no attention, served per slot) the mLSTM scan per mLSTM layer
+    per prefill, since a prefill against the cache takes the chunkwise
+    form, and none in decode."""
+    from repro_torch.models import decoder
+
     L = cfg.n_layers
+    if cfg.arch == "ssm":
+        n_mlstm = sum(not decoder._is_slstm(cfg, j) for j in range(L))
+        return {"paged_decode_attention": 0, "flash_attention": 0,
+                "moe_gating": 0, "mlstm_scan": n_mlstm * len(prompts)}
     n_long = sum(p.shape[1] >= 2048 for p in prompts)
     return {"paged_decode_attention": L * steps, "flash_attention": L * n_long,
-            "moe_gating": L * (len(prompts) + steps) if cfg.arch == "moe" else 0}
+            "moe_gating": L * (len(prompts) + steps) if cfg.arch == "moe" else 0,
+            "mlstm_scan": 0}
 
 
 def small_parity_phase(torch):
@@ -526,6 +680,82 @@ def small_parity_phase(torch):
                                for k, r in ties.items()}})
 
 
+def xlstm_parity_phase(torch):
+    """Gate G2: a reduced xlstm-1.3b (L=8, so block 7 is the sLSTM;
+    d=256, vocab 512, mLSTM head dim 128) served through ``BatchEngine``
+    on the card in float32, then on the CPU in float32 and in float64 on
+    the same weights and the card's greedy feed.  Over every prefill's
+    and step's logits: max|card32 - cpu64| <= max(1e-4, 2 max|cpu32 -
+    cpu64|).  The card launches the mLSTM kernel in the 7 mLSTM layers of
+    every prefill, the CPU never."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.simnet import Sim
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoder
+    from repro_torch.params import params_from_numpy, params_to_numpy
+    from repro_torch.serving import BatchEngine, ShardModule
+
+    cfg = get_config("xlstm-1.3b").reduced(n_layers=8)
+    L = cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = decoder.init_params(cfg, gen, "cuda")
+    tree = params_to_numpy(params)
+    runs = {"card32": params,
+            "cpu32": params_from_numpy(tree, "cpu"),
+            "cpu64": params_from_numpy(_cast_tree(tree, np.float64), "cpu")}
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+               for n in XLSTM_SMALL_PROMPTS]
+    want = expected_launches(cfg, prompts, XLSTM_SMALL_STEPS)
+    require(want["mlstm_scan"] == 7 * len(prompts), f"launches {want}")
+    out, counts = {}, {}
+    for name, p in runs.items():
+        sim = Sim(seed=0)
+        eng = BatchEngine(ShardModule(cfg, p, (0, L), True, True), sim,
+                          n_slots=len(prompts), page_size=32,
+                          device="cuda" if name == "card32" else "cpu")
+        require(not eng.fused, "xlstm must serve per slot")
+        ops.reset_launch_counts()
+        out[name] = _drive(eng, sim, prompts, XLSTM_SMALL_STEPS,
+                           None if name == "card32" else out["card32"][4])
+        counts[name] = ops.launch_counts()
+    require(counts["card32"] == want, f"card launches {counts['card32']}, "
+            f"want {want}")
+    require(not any(counts["cpu32"].values())
+            and not any(counts["cpu64"].values()),
+            f"the CPU runs launched kernels: {counts}")
+    require(out["cpu64"][0].dtype == np.float64, "the fp64 run is not fp64")
+
+    def diffs(a, b):          # max |a - b| per prefill row and per step
+        return ([float(np.abs(a[0][i] - b[0][i]).max())
+                 for i in range(len(prompts))]
+                + [float(np.abs(x - y).max()) for x, y in zip(a[2], b[2])])
+
+    card = diffs(out["card32"], out["cpu64"])
+    cpu = diffs(out["cpu32"], out["cpu64"])
+    limit = max(1e-4, 2 * max(cpu))
+    emit({"phase": "small_parity", "config": f"xlstm-1.3b reduced(L={L}, "
+          f"d={cfg.d_model}, vocab={cfg.vocab}, slstm_every="
+          f"{cfg.slstm_every})", "prompts": XLSTM_SMALL_PROMPTS,
+          "decode_steps": XLSTM_SMALL_STEPS, "launches_cuda": want,
+          "max_abs_logit_err": {"card32_vs_cpu64": max(card),
+                                "cpu32_vs_cpu64": max(cpu)},
+          "g2_limit": limit, "card32_vs_cpu64_per_call": card,
+          "cpu32_vs_cpu64_per_call": cpu})
+    require(max(card) <= limit, f"gate G2 fails: card32 vs cpu64 {max(card)} "
+            f"> {limit}")
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dtype) for v in tree]
+    return tree.astype(dtype)
+
+
 def serving_phase(torch, arch, phase):
     """Serve ``arch`` at full width and depth in fp32 through the fused
     engine, then replay its token feed through the per-slot path (the
@@ -537,7 +767,7 @@ def serving_phase(torch, arch, phase):
     from repro_torch.kernels import ops
     from repro_torch.models import decoder
     from repro_torch.serving import BatchEngine, ShardModule
-    from repro_torch.serving.sharded import _leaves
+    from repro_torch.serving.sharded import leaves
 
     cfg = get_config(arch)
     L = cfg.n_layers
@@ -559,7 +789,7 @@ def serving_phase(torch, arch, phase):
     with recording_gating() as rec:
         run = _drive(eng, sim, prompts, SERVE_STEPS)
     counts = ops.launch_counts()
-    first, prefill_s, logits, step_s, feed = run
+    first, prefill_s, logits, step_s, feed, _ = run
     pages_after = eng.stats["pages"]
     peak = torch.cuda.max_memory_allocated()
     require(pages_after == 0, f"pages after close: {pages_after}")
@@ -569,7 +799,7 @@ def serving_phase(torch, arch, phase):
         require(bool(np.isfinite(out).all()), "non-finite logits")
     emit({"phase": phase, "model": cfg.name, "n_layers": L,
           "d_model": cfg.d_model, "params": sum(
-              t.numel() for t in _leaves(params)),
+              t.numel() for t in leaves(params)),
           "init_s": init_s, "prompts": SERVE_PROMPTS,
           "prefill_ms": [s * 1e3 for s in prefill_s],
           "decode_steps": SERVE_STEPS,
@@ -599,7 +829,8 @@ def serving_phase(torch, arch, phase):
     sim = Sim(seed=0)
     q8 = BatchEngine(module, sim, n_slots=8, page_size=32, kv_dtype="int8",
                      device="cuda")
-    _, _, q_logits, q_step_s, _ = _drive(q8, sim, prompts, SERVE_STEPS, feed)
+    _, _, q_logits, q_step_s, _, _ = _drive(q8, sim, prompts, SERVE_STEPS,
+                                            feed)
     del q8
     torch.cuda.empty_cache()
     dev8 = max(float(np.abs(a - b).max()) for a, b in zip(q_logits, logits))
@@ -613,6 +844,191 @@ def serving_phase(torch, arch, phase):
           "int8_decode_ms_per_step_median": statistics.median(q_step_s) * 1e3})
     profile_decode(torch, module, prompts, feed)
     return counts
+
+
+@contextlib.contextmanager
+def recording_mlstm():
+    """Keep every mLSTM scan's (inputs, outputs) in call order; the
+    counted kernel wrapper still does the work."""
+    from repro_torch.kernels import ops
+
+    real, rec = ops.mlstm_scan, []
+
+    def record(*args):
+        out = real(*args)
+        rec.append((args, out))
+        return out
+
+    ops.mlstm_scan = record
+    try:
+        yield rec
+    finally:
+        ops.mlstm_scan = real
+
+
+def serving_xlstm_phase(torch):
+    """Serve xlstm-1.3b at full width and depth in fp32 through the
+    per-slot engine, every prefill's mLSTM layers through the kernel, under
+    gate G3; then the state handoff checks (G3) with gate G1 on the
+    kernel's real inputs, and a profile of a few decode steps."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.simnet import Sim
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoder
+    from repro_torch.serving.sharded import leaves
+    from repro_torch.serving import BatchEngine, ShardModule
+
+    cfg = get_config("xlstm-1.3b")
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = decoder.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module = ShardModule(cfg, params, (0, L), is_first=True, is_last=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+               for n in XLSTM_PROMPTS]
+    want = expected_launches(cfg, prompts, SERVE_STEPS)
+    require(want["mlstm_scan"] == 42 * len(prompts), f"launches {want}")
+
+    sim = Sim(seed=0)
+    eng = BatchEngine(module, sim, n_slots=8, page_size=32, device="cuda")
+    require(not eng.fused, "xlstm must serve per slot")
+    ops.reset_launch_counts()
+    first, prefill_s, logits, step_s, feed, held = _drive(
+        eng, sim, prompts, SERVE_STEPS)
+    counts = ops.launch_counts()
+    pages_after = eng.stats["pages"]
+    peak = torch.cuda.max_memory_allocated()
+    del eng
+    emit({"phase": "serving_xlstm", "model": cfg.name, "n_layers": L,
+          "d_model": cfg.d_model,
+          "params": sum(t.numel() for t in leaves(params)),
+          "init_s": init_s, "prompts": XLSTM_PROMPTS,
+          "prefill_ms": [t * 1e3 for t in prefill_s],
+          "decode_steps": SERVE_STEPS,
+          "decode_ms_per_step_median": statistics.median(step_s) * 1e3,
+          "tokens_per_s": len(prompts) * SERVE_STEPS / sum(step_s),
+          "launches": counts, "pages_after_close": pages_after,
+          "state_bytes_per_session": held,
+          "max_memory_allocated_bytes": peak})
+    for out in [first] + logits:
+        require(out.shape == (len(prompts), cfg.vocab), f"shape {out.shape}")
+        require(bool(np.isfinite(out).all()), "non-finite logits")
+    require(counts == want, f"xlstm launches {counts} != {want}")
+    require(pages_after == 0, f"pages after close: {pages_after}")
+    require(held == [XLSTM_STATE_BYTES] * len(prompts),
+            f"state bytes per session {held}")
+
+    tokens = torch.from_numpy(prompts[0]).cuda()          # the 2048 prompt
+    handoff_by_layer(torch, cfg, params, tokens)
+    handoff_end_to_end(torch, cfg, params, tokens)
+    profile_decode(torch, module, prompts, feed)
+    return counts
+
+
+def handoff_by_layer(torch, cfg, params, tokens):
+    """Gate G3's handoff, layer by layer: each layer, fed the input that
+    prefill(2048) gives it, runs prefill(2048) and prefill(2047) + one
+    decode step from a fresh cache; the mLSTM C and n and the sLSTM c, n
+    and h agree within 1e-4 of their largest entry, every m within 1e-4.
+    The prefill(2048) pass is also where every mLSTM layer's real inputs
+    hold the kernel to gate G1, and its layer times give the sLSTM's
+    share."""
+    import dataclasses
+
+    from repro_torch.models import decoder
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    S = tokens.shape[1]
+    x = params["embed"][tokens.long()]
+    pos = torch.arange(S, device="cuda")[None]
+    worst = {"state_rel": 0.0, "m_abs": 0.0}
+    g1_worst = {}
+    ms_by_kind = {"mlstm": [], "slstm": []}
+
+    def fresh():
+        return decoder.init_cache(one, 1, S + 1, device="cuda")["layers"][0]
+
+    for j, bp in enumerate(params["blocks"]):
+        kind = "slstm" if decoder._is_slstm(cfg, j) else "mlstm"
+        with recording_mlstm() as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x_next, whole, _ = decoder.run_block(cfg, bp, x, pos, fresh(), 0,
+                                                 layer_idx=j)
+            torch.cuda.synchronize()
+            ms_by_kind[kind].append((time.perf_counter() - t0) * 1e3)
+        require(len(rec) == (kind == "mlstm"), f"layer {j}: {len(rec)} scans")
+        for args, out in rec:
+            res = mlstm_g1(torch, out, args)
+            require(g1_holds(res), f"layer {j}: gate G1 fails on the real "
+                    f"inputs: {res}")
+            for k, v in res.items():
+                g1_worst[k] = max(g1_worst.get(k, 0.0), v)
+        del rec
+        _, part, _ = decoder.run_block(cfg, bp, x[:, :S - 1], pos[:, :S - 1],
+                                       fresh(), 0, layer_idx=j)
+        _, part, _ = decoder.run_block(cfg, bp, x[:, S - 1:], pos[:, S - 1:],
+                                       part, S - 1, layer_idx=j)
+        keys = (("C", "n"), "m") if kind == "mlstm" else (("sc", "sn", "sh"),
+                                                          "sm")
+        for key in keys[0]:
+            a, b = part[key], whole[key]
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            worst["state_rel"] = max(worst["state_rel"], rel)
+            require(rel <= 1e-4, f"layer {j} {key}: handoff differs by {rel} "
+                    "of its largest entry")
+        m_abs = (part[keys[1]] - whole[keys[1]]).abs().max().item()
+        worst["m_abs"] = max(worst["m_abs"], m_abs)
+        require(m_abs <= 1e-4, f"layer {j} {keys[1]}: handoff differs by "
+                f"{m_abs}")
+        x = x_next
+    total = sum(sum(v) for v in ms_by_kind.values())
+    emit({"phase": "xlstm_handoff_by_layer", "S": S, **worst,
+          "tolerance": {"state_rel": 1e-4, "m_abs": 1e-4},
+          "mlstm_g1_real_inputs_worst": g1_worst,
+          "mlstm_layers": len(ms_by_kind["mlstm"]),
+          "mlstm_layer_ms_median": statistics.median(ms_by_kind["mlstm"]),
+          "slstm_layer_ms_median": statistics.median(ms_by_kind["slstm"]),
+          "slstm_share_of_layer_time": sum(ms_by_kind["slstm"]) / total})
+
+
+def handoff_end_to_end(torch, cfg, params, tokens):
+    """Gate G3's end-to-end handoff on the same model: |logits(2047 + 1) -
+    logits(2048)| is no larger than what a one-ulp move of every input
+    embedding entry does to prefill(2048)'s logits in the same run."""
+    from repro_torch.models import decoder
+
+    S = tokens.shape[1]
+
+    def prefill(p, toks):
+        cache = decoder.init_cache(cfg, 1, S + 1, device="cuda")
+        return decoder.prefill(p, cfg, {"tokens": toks}, cache)
+
+    whole, _ = prefill(params, tokens)
+    part, cache = prefill(params, tokens[:, :S - 1])
+    step, _ = decoder.decode_step(params, cfg, tokens[:, S - 1], cache)
+    del cache
+    moved = dict(params, embed=torch.nextafter(
+        params["embed"], torch.tensor(float("inf"), device="cuda")))
+    ulp, _ = prefill(moved, tokens)
+    del moved
+    handoff = (step - whole).abs().max().item()
+    ulp_change = (ulp - whole).abs().max().item()
+    emit({"phase": "xlstm_handoff", "S": S,
+          "handoff_max_abs_logit_diff": handoff,
+          "one_ulp_embedding_max_abs_logit_change": ulp_change,
+          "logit_std": whole.std().item()})
+    require(bool(torch.isfinite(step).all() and torch.isfinite(whole).all()),
+            "non-finite handoff logits")
+    require(handoff <= ulp_change, f"2047 + 1 vs 2048 logits differ by "
+            f"{handoff}, more than one ulp of the embeddings moves them "
+            f"({ulp_change})")
 
 
 def profile_decode(torch, module, prompts, feed, steps: int = 4):
@@ -657,6 +1073,13 @@ def profile_decode(torch, module, prompts, feed, steps: int = 4):
               for us, n, name in kernels[:12]]})
 
 
+def release(torch, before: str) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    require(held < 2 ** 30, f"{held} bytes still allocated before {before}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found beside this "
@@ -685,16 +1108,18 @@ def main() -> int:
     paged = paged_phase(torch, flush)
     flash = flash_phase(torch, flush)
     gating = gating_phase(torch, flush)
+    mlstm = mlstm_phase(torch, flush)
     del flush
     small_parity_phase(torch)
+    xlstm_parity_phase(torch)
     counts = serving_phase(torch, "granite-8b", "serving")
-    # granite-8b's 33 GB and qwen2-moe-a2.7b's 57 GB do not fit one card
-    # together: everything of the first model must be gone
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    require(held < 2 ** 30, f"{held} bytes still allocated before serving_moe")
+    # granite-8b's 33 GB, qwen2-moe-a2.7b's 57 GB and xlstm-1.3b's 23 GB do
+    # not fit one card together: everything of one model must be gone
+    # before the next
+    release(torch, "serving_moe")
     moe_counts = serving_phase(torch, "qwen2-moe-a2.7b", "serving_moe")
+    release(torch, "serving_xlstm")
+    xlstm_counts = serving_xlstm_phase(torch)
 
     emit({"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -723,6 +1148,17 @@ def main() -> int:
          "bound_ms": gating["T8"]["bound_ms"],
          "bound_by": gating["T8"]["bound_by"],
          "library_ms": gating["library_ms"]},
+        {"name": "mlstm_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+         "replaces": "src/repro/kernels/mlstm_scan.py:25",
+         "launches": xlstm_counts["mlstm_scan"],
+         # at the main path's long prompt: B=1, H=4, S=2048, hd=1024
+         "max_abs_err": mlstm["S2048_cache"]["h_abs"],
+         "ms": mlstm["S2048_cache"]["kernel_ms"],
+         "plain_ms": mlstm["S2048_cache"]["plain_ms"],
+         "bound_ms": mlstm["S2048_cache"]["bound_ms"],
+         "bound_by": mlstm["S2048_cache"]["bound_by"],
+         "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

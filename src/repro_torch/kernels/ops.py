@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import flash_attention as _flash
+from . import mlstm_scan as _mlstm
 from . import moe_gating as _gating
 from . import paged_attention as _paged
 
@@ -63,13 +64,26 @@ def moe_gating(logits: torch.Tensor, k: int,
     return fn(logits, k)
 
 
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_i: torch.Tensor, log_f: torch.Tensor, C0: torch.Tensor,
+               n0: torch.Tensor, m0: torch.Tensor,
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chunkwise mLSTM over q, k (pre-scaled by 1/sqrt(hd)), v (B,H,S,hd)
+    and log gates (B,H,S) from the state C0 (B,H,hd,hd), n0 (B,H,hd),
+    m0 (B,H).  Returns (h (B,H,S,hd), C_T, n_T, m_T)."""
+    fn = _mlstm.mlstm_scan_cuda if _route(q) else _mlstm.mlstm_scan_plain
+    return fn(q, k, v, log_i, log_f, C0, n0, m0)
+
+
 def launch_counts() -> Dict[str, int]:
     return {"paged_decode_attention": _paged.launches,
             "flash_attention": _flash.launches,
-            "moe_gating": _gating.launches}
+            "moe_gating": _gating.launches,
+            "mlstm_scan": _mlstm.launches}
 
 
 def reset_launch_counts() -> None:
     _paged.launches = 0
     _flash.launches = 0
     _gating.launches = 0
+    _mlstm.launches = 0

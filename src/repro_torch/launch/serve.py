@@ -3,8 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --batch 4 --prompt-len 64 --gen 32
 
-``--arch`` takes any ported config: the dense ones (granite-8b, ...) and
-the MoE ones (qwen2-moe-a2.7b, dbrx-132b).
+``--arch`` takes any ported config: the dense ones (granite-8b, ...), the
+MoE ones (qwen2-moe-a2.7b, dbrx-132b) and xlstm-1.3b.
 
 Runs on the card (``--device cuda``, the default) with the full config;
 ``--reduced`` serves the smoke-test width instead, and ``--device cpu``

@@ -1,5 +1,6 @@
 """Model zoo of the port: ``ops_for(cfg)`` returns the entry points that
-serving programs against.  The dense and MoE decoders are ported so far.
+serving programs against.  The dense, MoE and xLSTM (ssm) decoders are
+ported so far.
 
     init(cfg, generator, device, dtype) -> params
     forward(params, cfg, batch)         -> (logits, aux)

@@ -48,11 +48,13 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...],
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
+    """In float32 (float64 inputs stay float64), cast back to x's type."""
     dtype = x.dtype
-    x = x.float()
+    up = torch.promote_types(dtype, torch.float32)
+    x = x.to(up)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(dtype)
+    return (out * weight.to(up)).to(dtype)
 
 
 # ------------------------------------------------------------------------ RoPE
@@ -169,8 +171,15 @@ def run_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
         cv[:, cache_len:cache_len + S] = v
         new_cache = (ck, cv)
         if S > 1 and S >= FLASH_MIN_SEQ:
-            # initial prefill (cache starts empty): stream the NEW block's
-            # k/v flash-style instead of materializing S x T scores
+            # initial prefill: stream the NEW block's k/v flash-style
+            # instead of materializing S x T scores.  That attends over the
+            # block alone, from position 0, so it is right only for an
+            # empty cache (the JAX package takes it for any cache_len)
+            if cache_len > 0:
+                raise ValueError(
+                    f"a prefill of {S} >= {FLASH_MIN_SEQ} tokens takes the "
+                    f"flash branch, which needs an empty cache; this cache "
+                    f"holds {cache_len} tokens")
             kk = _repeat_kv(k, H // Hk)
             vv = _repeat_kv(v, H // Hk)
             out = ops.flash_attention(q, kk, vv, causal=True, window=cfg.window)

@@ -1,8 +1,11 @@
-"""Decoder-only model: the dense and MoE architectures.
+"""Decoder-only model: the dense, MoE and xLSTM (ssm) architectures.
 
-Parameters are a dict of tensors in the JAX package's tree layout, with
-per-layer weights stacked on a leading layer axis, so the weight bridge
-(:mod:`repro_torch.params`) is a copy.  Three entry points:
+Parameters are a dict of tensors in the JAX package's tree layout, so the
+weight bridge (:mod:`repro_torch.params`) is a copy: dense and MoE blocks
+are stacked on a leading layer axis, and the heterogeneous xLSTM stack is
+a list of per-layer dicts, each holding an ``mlstm`` and an ``slstm``
+tree (layer ``l`` runs its sLSTM when ``l % slstm_every == slstm_every -
+1``, on the global layer index).  Three entry points:
 
   * ``forward``      — full-sequence logits (teacher forcing)
   * ``prefill``      — full sequence, filling a decode cache
@@ -10,10 +13,11 @@ per-layer weights stacked on a leading layer axis, so the weight bridge
 
 An MoE block replaces the MLP with :func:`.moe.run_moe`, without token
 drops when it runs against a cache (prefill and decode), and its
-load-balance loss is summed over the layers.  Other architectures (ssm,
-hybrid, vlm, audio) are later slices of the port and raise
+load-balance loss is summed over the layers.  Other architectures
+(hybrid, vlm, audio) are later slices of the port and raise
 ``NotImplementedError``.  KV caches are updated in place (see
-:mod:`.common`).
+:mod:`.common`); an xLSTM cache is, as in JAX, a list of per-layer state
+dicts that each call replaces.
 """
 
 from __future__ import annotations
@@ -27,9 +31,10 @@ from .common import (Params, dense_init, init_attention, init_mlp, rms_norm,
                      run_attention, run_mlp)
 from .config import ModelConfig
 from .moe import init_moe, run_moe, switch_aux
+from .ssm import init_mlstm, init_slstm, run_mlstm, run_slstm
 
 #: architectures this module implements so far
-PORTED_ARCHS = ("dense", "moe")
+PORTED_ARCHS = ("dense", "moe", "ssm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -40,7 +45,8 @@ def require_ported(cfg: ModelConfig) -> None:
 
 
 def layer_params(tree: Any, j: int) -> Any:
-    """Layer ``j``'s slice (views) of a layer-stacked parameter tree."""
+    """Layer ``j``'s slice (views) of a layer-stacked parameter tree, or
+    entry ``j`` of a per-layer list."""
     if isinstance(tree, dict):
         return {k: layer_params(v, j) for k, v in tree.items()}
     return tree[j]
@@ -65,6 +71,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (D, cfg.vocab), dev, dtype)
+    if cfg.arch == "ssm":
+        params["blocks"] = [_init_ssm_block(cfg, generator, dev, dtype)
+                            for _ in range(L)]
+        return params
     params["blocks"] = {
         "ln1": torch.ones((L, D), device=dev, dtype=dtype),
         "attn": init_attention(cfg, generator, dev, dtype, L),
@@ -78,9 +88,46 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def _init_ssm_block(cfg: ModelConfig, generator: torch.Generator,
+                    device: torch.device, dtype: torch.dtype) -> Params:
+    p: Params = {"ln1": torch.ones((cfg.d_model,), device=device, dtype=dtype),
+                 "mlstm": init_mlstm(cfg, generator, device, dtype)}
+    if cfg.slstm_every:
+        p["slstm"] = init_slstm(cfg, generator, device, dtype)
+    return p
+
+
+def _is_slstm(cfg: ModelConfig, layer: int) -> bool:
+    return bool(cfg.slstm_every) and (
+        layer % cfg.slstm_every == cfg.slstm_every - 1)
+
+
 # ======================================================================
 # block application
 # ======================================================================
+
+_MLSTM_KEYS = ("C", "n", "m")
+_SLSTM_KEYS = ("sc", "sn", "sh", "sm")
+
+
+def _run_ssm_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   cache: Optional[Dict[str, torch.Tensor]], layer_idx: int,
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """An xLSTM block: rms_norm, the sLSTM or the mLSTM, residual.  With a
+    cache, returns a new per-layer dict holding the new state."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if _is_slstm(cfg, layer_idx):
+        keys, fn, sub = _SLSTM_KEYS, run_slstm, p["slstm"]
+    else:
+        keys, fn, sub = _MLSTM_KEYS, run_mlstm, p["mlstm"]
+    st = tuple(cache[key] for key in keys) if cache is not None else None
+    out, new_st = fn(sub, cfg, h, st)
+    new_cache = None
+    if cache is not None:
+        new_cache = dict(cache)
+        new_cache.update(zip(keys, new_st))
+    return x + out, new_cache
+
 
 def run_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
               positions: torch.Tensor,
@@ -88,9 +135,12 @@ def run_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
               cache_len: Optional[int] = None,
               layer_idx: int = 0,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
-    """One transformer block.  Returns (x, new_cache, aux_loss)."""
+    """One block.  Returns (x, new_cache, aux_loss)."""
     require_ported(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.arch == "ssm":
+        x, new_cache = _run_ssm_block(cfg, p, x, cache, layer_idx)
+        return x, new_cache, aux
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     kv = (cache["k"], cache["v"]) if cache is not None else None
     attn_out, new_kv = run_attention(p["attn"], cfg, h, positions, kv, cache_len)
@@ -146,9 +196,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32,
                device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Dense cache: per-layer k/v stacked as (L, B, T, Hk, hd) and a host
-    ``int`` length."""
+    ``int`` length.  xLSTM cache: a list of per-layer dicts, each with the
+    mLSTM state C (B,H,hd,hd), n (B,H,hd), m (B,H) = 0 and the sLSTM
+    state sc, sn = 1e-6, sh, sm (B,H,d/H), in every layer and in float32
+    whatever ``dtype``, as in JAX (``max_len`` sizes nothing)."""
     require_ported(cfg)
     dev = resolve_device(device)
+    if cfg.arch == "ssm":
+        return {"len": 0, "layers": [_ssm_layer_cache(cfg, batch, dev)
+                                     for _ in range(cfg.n_layers)]}
     L, Hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     kv_len = min(max_len, cfg.window) if cfg.window else max_len
     shape = (L, batch, kv_len, Hk, hd)
@@ -157,14 +213,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                        "v": torch.zeros(shape, dtype=dtype, device=dev)}}
 
 
+def _ssm_layer_cache(cfg: ModelConfig, batch: int,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    H = cfg.n_heads
+    hd_m = 2 * cfg.d_model // H
+    hd_s = cfg.d_model // H
+
+    def zeros(*shape: int) -> torch.Tensor:
+        return torch.zeros((batch, H) + shape, dtype=torch.float32,
+                           device=device)
+
+    return {"C": zeros(hd_m, hd_m), "n": zeros(hd_m), "m": zeros(),
+            "sc": zeros(hd_s), "sn": zeros(hd_s) + 1e-6, "sh": zeros(hd_s),
+            "sm": zeros(hd_s)}
+
+
 def apply_layers_cached(blocks: Params, cfg: ModelConfig, x: torch.Tensor,
                         positions: torch.Tensor, cache: Dict[str, Any],
                         layer_offset: int = 0,
                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run every layer of ``blocks`` against ``cache`` (whose tensors are
-    written in place).  Returns (x, cache with the advanced length)."""
+    written in place; an xLSTM cache's layer list is replaced).  Returns
+    (x, cache with the advanced length)."""
     cache_len = cache["len"]
     layers = cache["layers"]
+    if cfg.arch == "ssm":
+        new_layers = []
+        for j, (bp, lc) in enumerate(zip(blocks, layers)):
+            x, nc, _ = run_block(cfg, bp, x, positions, lc, cache_len,
+                                 layer_idx=layer_offset + j)
+            new_layers.append(nc)
+        return x, {"len": cache_len + x.shape[1], "layers": new_layers}
     n_layers = layers["k"].shape[0]
     for j in range(n_layers):
         lc = {"k": layers["k"][j], "v": layers["v"][j]}

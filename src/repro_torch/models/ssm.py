@@ -1,0 +1,204 @@
+"""Recurrent sequence layers of xLSTM: mLSTM and sLSTM.
+
+Plain functions over parameter dicts with the JAX package's keys, shapes,
+scales and ``(in, out)`` layout, so the weight bridge is a copy.  The mLSTM
+keeps the three branches of the JAX package's ``run_mlstm``:
+
+  * decode (``S == 1`` with a state): the O(1) recurrence;
+  * no state and ``S <= 256``: the stabilised quadratic D-matrix form;
+  * otherwise the chunkwise form, through
+    :func:`repro_torch.kernels.ops.mlstm_scan` (the CUDA kernel on the
+    card): from ``C = n = 0``, ``m = -1e30`` without a state, else from
+    the state it is given (a serving cache starts at ``m = 0``, as in JAX).
+
+The sLSTM is the JAX package's sequential recurrence, one step per token.
+Both compute in float32, or in float64 for float64 inputs (the CPU
+reference a float32 run is held to).  The sequence-parallel mLSTM
+(``cfg.seq_segments > 1``) needs a mesh and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .common import dense_init, rms_norm
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+State = Tuple[torch.Tensor, ...]
+
+#: the JAX package's mLSTM chunk (``MLSTM_CHUNK``): the quadratic form
+#: serves state-free sequences up to this length
+MLSTM_CHUNK = 256
+NEG = -1e30
+GATES = ("z", "i", "f", "o")
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """float32, or float64 kept as it is (the JAX package's upcasts)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+# =====================================================================
+# mLSTM
+# =====================================================================
+
+def init_mlstm(cfg: ModelConfig, generator: torch.Generator,
+               device: torch.device, dtype: torch.dtype) -> Params:
+    D = cfg.d_model
+    d_in = 2 * D                      # xLSTM pre-up-projection factor 2
+    H = cfg.n_heads
+    g, dev = generator, device
+    return {
+        "w_up": dense_init(g, (D, 2 * d_in), dev, dtype),       # x and gate
+        "wq": dense_init(g, (d_in, d_in), dev, dtype),
+        "wk": dense_init(g, (d_in, d_in), dev, dtype),
+        "wv": dense_init(g, (d_in, d_in), dev, dtype),
+        "w_i": dense_init(g, (d_in, H), dev, torch.float32, scale=0.02),
+        "b_i": torch.zeros((H,), device=dev),
+        "w_f": dense_init(g, (d_in, H), dev, torch.float32, scale=0.02),
+        "b_f": torch.full((H,), 3.0, device=dev),   # forget-gate bias init
+        "norm": torch.ones((d_in,), device=dev, dtype=dtype),
+        "w_down": dense_init(g, (d_in, D), dev, dtype),
+    }
+
+
+def _mlstm_decode(q, k, v, log_i, log_f, state: State):
+    """One token: q, k, v (B,H,hd); log gates (B,H)."""
+    C0, n0, m0 = (s.to(q.dtype) for s in state)
+    m1 = torch.maximum(log_f + m0, log_i)
+    i1 = torch.exp(log_i - m1)
+    f1 = torch.exp(log_f + m0 - m1)
+    C1 = (f1[..., None, None] * C0
+          + i1[..., None, None] * (k[..., :, None] * v[..., None, :]))
+    n1 = f1[..., None] * n0 + i1[..., None] * k
+    num = torch.einsum("bhij,bhi->bhj", C1, q)
+    den = torch.maximum(torch.einsum("bhi,bhi->bh", n1, q).abs(),
+                        torch.exp(-m1))
+    return num / den[..., None], (C1, n1, m1)
+
+
+def _mlstm_quadratic(q, k, v, log_i, log_f):
+    """The stabilised D-matrix form over (B,S,H,hd), no state."""
+    S = q.shape[1]
+    Fc = torch.cumsum(log_f, dim=1)                            # (B,S,H)
+    logD = Fc[:, :, None, :] - Fc[:, None, :, :] + log_i[:, None, :, :]
+    tri = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+    logD = torch.where(tri[None, :, :, None], logD, float("-inf"))
+    m = logD.amax(dim=2)                                       # (B,t,H)
+    Dm = torch.exp(logD - m[:, :, None, :])                    # (B,t,s,H)
+    scores = torch.einsum("bthd,bshd->btsh", q, k) * Dm
+    norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-m))
+    return torch.einsum("btsh,bshd->bthd", scores, v) / norm[..., None]
+
+
+def run_mlstm(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              state: Optional[State] = None,
+              ) -> Tuple[torch.Tensor, Optional[State]]:
+    """x: (B,S,D).  state = (C (B,H,hd,hd), n (B,H,hd), m (B,H)).
+    Returns (y (B,S,D), the new state, or None without a state)."""
+    if cfg.seq_segments > 1:
+        raise NotImplementedError(
+            "the sequence-parallel mLSTM (seq_segments > 1) needs a mesh and "
+            "is not ported yet")
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    xin, z = torch.chunk(x @ p["w_up"], 2, dim=-1)             # (B,S,d_in)
+    d_in = xin.shape[-1]
+    hd = d_in // H
+    q = _f32(xin @ p["wq"]).reshape(B, S, H, hd)
+    k = _f32(xin @ p["wk"]).reshape(B, S, H, hd) / math.sqrt(hd)
+    v = _f32(xin @ p["wv"]).reshape(B, S, H, hd)
+    log_i = _f32(xin) @ p["w_i"] + p["b_i"]                    # (B,S,H)
+    log_f = F.logsigmoid(_f32(xin) @ p["w_f"] + p["b_f"])
+
+    new_state: Optional[State] = None
+    if S == 1 and state is not None:
+        h, new_state = _mlstm_decode(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
+                                     log_f[:, 0], state)
+        h = h.reshape(B, 1, d_in)
+    elif S <= MLSTM_CHUNK and state is None:
+        h = _mlstm_quadratic(q, k, v, log_i, log_f).reshape(B, S, d_in)
+    else:
+        if state is not None:
+            C0, n0, m0 = (s.to(q.dtype).contiguous() for s in state)
+        else:
+            C0 = q.new_zeros((B, H, hd, hd))
+            n0 = q.new_zeros((B, H, hd))
+            m0 = q.new_full((B, H), NEG)
+        bhsd = [t.transpose(1, 2).contiguous() for t in (q, k, v, log_i, log_f)]
+        h, C1, n1, m1 = ops.mlstm_scan(*bhsd, C0, n0, m0)
+        h = h.transpose(1, 2).reshape(B, S, d_in)
+        if state is not None:
+            new_state = (C1, n1, m1)
+    h = rms_norm(h.to(x.dtype), p["norm"], cfg.norm_eps)
+    y = (h * F.silu(z)) @ p["w_down"]
+    return y, new_state
+
+
+# =====================================================================
+# sLSTM
+# =====================================================================
+
+def init_slstm(cfg: ModelConfig, generator: torch.Generator,
+               device: torch.device, dtype: torch.dtype) -> Params:
+    D = cfg.d_model
+    H = cfg.n_heads
+    hd = D // H
+    g, dev = generator, device
+    p: Params = {"norm": torch.ones((D,), device=dev, dtype=dtype)}
+    for gate in GATES:
+        p[f"w_{gate}"] = dense_init(g, (D, D), dev, dtype)
+        p[f"r_{gate}"] = dense_init(g, (H, hd, hd), dev, dtype, scale=0.02)
+        p[f"b_{gate}"] = torch.full((D,), 3.0 if gate == "f" else 0.0,
+                                    device=dev)
+    ff = int(D * 8 / 3) // 16 * 16
+    p["ff_gate"] = dense_init(g, (D, ff), dev, dtype)
+    p["ff_down"] = dense_init(g, (ff // 2, D), dev, dtype)
+    return p
+
+
+def run_slstm(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              state: Optional[State] = None,
+              ) -> Tuple[torch.Tensor, Optional[State]]:
+    """x: (B,S,D).  state = (c, n, h, m), each (B,H,hd).
+    Returns (y (B,S,D), the new state, or None without a state)."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    hd = D // H
+    # the input terms of every step, and the recurrent weights, gate after
+    # gate on the last axis: one (B,H,hd) x (H,hd,4hd) product per step
+    wx = torch.cat([_f32(x @ p[f"w_{g}"] + p[f"b_{g}"].to(x.dtype))
+                    .reshape(B, S, H, hd) for g in GATES], dim=-1)
+    R = torch.cat([_f32(p[f"r_{g}"]) for g in GATES], dim=-1)
+    if state is None:
+        zero = wx.new_zeros((B, H, hd))
+        c, n, h, m = zero, zero + 1e-6, zero, zero
+    else:
+        c, n, h, m = (s.to(wx.dtype) for s in state)
+    hs = []
+    for t in range(S):
+        pre = wx[:, t] + torch.einsum("bhi,hij->bhj", h, R)
+        zt, it, ft, ot = torch.split(pre, hd, dim=-1)
+        log_f = F.logsigmoid(ft)
+        m1 = torch.maximum(log_f + m, it)
+        i1 = torch.exp(it - m1)
+        f1 = torch.exp(log_f + m - m1)
+        c = f1 * c + i1 * torch.tanh(zt)
+        n = f1 * n + i1
+        h = torch.sigmoid(ot) * c / torch.clamp_min(n, 1e-6)
+        m = m1
+        hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    # gated feed-forward (GeGLU, factor 4/3); jax.nn.gelu's default is the
+    # tanh form
+    a, b = torch.chunk(y @ p["ff_gate"], 2, dim=-1)
+    y = (F.gelu(a, approximate="tanh") * b) @ p["ff_down"]
+    new_state = (c, n, h, m) if state is not None else None
+    return y, new_state

@@ -26,8 +26,10 @@ Two decode paths share the slot table:
   scales, dequantized in the attention kernel); the partial page keeps an
   fp32 staging tail per slot, and appends requantize it on the device.
 
-* **Per-slot path** (``fused=False``): one batch-1 ``module.apply`` per
-  session per token over a dense cache grown by whole pages.
+* **Per-slot path** (``fused=False``, and always for the xLSTM arch, as
+  in the JAX engine): one batch-1 ``module.apply`` per session per token
+  over a dense cache grown by whole pages.  An xLSTM cache is recurrent
+  state of a fixed size: growth only counts its pages.
 
 Order of work, which ``chip_smoke.py`` relies on to pair two runs' MoE
 gating calls: ``open`` prefills its prompt through every layer in turn; a
@@ -56,6 +58,7 @@ from ..core.simnet import Sim
 from ..kernels.ops import paged_decode_attention
 from ..models.common import apply_rope, rms_norm, run_mlp
 from ..models.moe import run_moe
+from .sharded import leaves
 
 __all__ = ["BatchEngine", "KVPool", "SlotState", "PEER_FLOPS", "PEER_BW"]
 
@@ -83,6 +86,11 @@ def _quant_page_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy in float32, or float64 for a float64 run."""
+    return t.to(torch.promote_types(t.dtype, torch.float32)).cpu().numpy()
 
 
 class KVPool:
@@ -292,15 +300,19 @@ class BatchEngine:
         return self.module.init_cache(1, cap), cap
 
     def _ensure_capacity(self, st: SlotState, need: int) -> None:
-        """Grow the slot's dense cache by whole pages until it can hold
-        ``need`` tokens."""
+        """Grow the slot's cache by whole pages until it can hold ``need``
+        tokens.  A dense cache is reallocated and copied; an xLSTM cache
+        (a list of per-layer states of a fixed size) is kept as it is, as
+        the JAX engine's merge keeps every leaf whose shape does not grow,
+        and only its page count grows."""
         if need <= st.capacity:
             return
         new_cap = self._pages_for(need) * self.page_size
-        fresh = self.module.init_cache(1, new_cap)
-        for name, old in st.cache["layers"].items():
-            fresh["layers"][name][:, :, :old.shape[2]] = old
-        st.cache = {"len": st.cache["len"], "layers": fresh["layers"]}
+        if isinstance(st.cache["layers"], dict):
+            fresh = self.module.init_cache(1, new_cap)
+            for name, old in st.cache["layers"].items():
+                fresh["layers"][name][:, :, :old.shape[2]] = old
+            st.cache = {"len": st.cache["len"], "layers": fresh["layers"]}
         self._fallback_pages += (new_cap - st.capacity) // self.page_size
         st.capacity = new_cap
         self._note_pages()
@@ -328,7 +340,7 @@ class BatchEngine:
             return float(b)
         if st.cache is None:
             return 0.0
-        return float(sum(_nbytes(t) for t in st.cache["layers"].values()))
+        return float(sum(_nbytes(t) for t in leaves(st.cache["layers"])))
 
     def kv_bytes(self) -> float:
         """Current cache-resident bytes across all live slots (pool pages
@@ -521,7 +533,7 @@ class BatchEngine:
             out = m.head(out[:, -1:])[:, 0]       # (1, vocab)
         cost = self._cost(m.flops(S),
                           self._weight_bytes() + self._slot_kv_bytes(st))
-        return out.float().cpu().numpy(), cost
+        return _host(out), cost
 
     def step(self, sessions: List[Any], x: np.ndarray,
              evict: Optional[List[Any]] = None,
@@ -591,7 +603,7 @@ class BatchEngine:
         # one pass over the weights for the whole batch — the fused win
         cost = self._cost(m.flops(1) * len(served),
                           self._weight_bytes() + kv_read)
-        return out.float().cpu().numpy(), served, cost
+        return _host(out), served, cost
 
     def _step_unfused(self, sessions: List[Any], x: np.ndarray,
                       ) -> Tuple[np.ndarray, List[Any], float]:
@@ -610,7 +622,7 @@ class BatchEngine:
             self._ensure_capacity(st, cur + 1)
             out, st.cache = m.apply(xi, self._positions(cur, 1, 1), st.cache)
             out = m.head(out)[:, 0] if m.is_last else out[:, 0]
-            outs.append(out[0].float().cpu().numpy())
+            outs.append(_host(out[0]))
             served.append(sid)
             # every session re-reads the shard weights: M passes per step
             cost += self._cost(m.flops(1),

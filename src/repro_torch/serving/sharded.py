@@ -32,6 +32,8 @@ def plan_shards(cfg: ModelConfig, n_shards: int) -> List[Tuple[int, int]]:
 
 
 def _slice_layers(tree: Any, lo: int, hi: int) -> Any:
+    """Layers ``lo:hi`` of a layer-stacked tree (views), or of a per-layer
+    list (the xLSTM stack)."""
     if isinstance(tree, dict):
         return {k: _slice_layers(v, lo, hi) for k, v in tree.items()}
     return tree[lo:hi]
@@ -40,7 +42,8 @@ def _slice_layers(tree: Any, lo: int, hi: int) -> Any:
 def split_params(cfg: ModelConfig, params: Any,
                  plan: List[Tuple[int, int]]) -> List[Dict[str, Any]]:
     """Per-shard param subsets (first gets embed, last gets norm+head).
-    Layer slices are views of the stacked tensors."""
+    Layer slices are views of the stacked tensors, or sublists of the
+    per-layer list."""
     decoder.require_ported(cfg)
     shards = []
     for i, (lo, hi) in enumerate(plan):
@@ -57,9 +60,12 @@ def split_params(cfg: ModelConfig, params: Any,
     return shards
 
 
-def _leaves(tree: Any) -> List[torch.Tensor]:
+def leaves(tree: Any) -> List[torch.Tensor]:
+    """Every tensor of a tree of dicts and lists, in order."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
+        return [leaf for v in tree.values() for leaf in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in leaves(v)]
     return [tree]
 
 
@@ -97,7 +103,7 @@ class ShardModule:
         return x @ w
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        """A dense cache for this shard's layers only."""
+        """A decode cache for this shard's layers only."""
         layer_cfg = dataclasses.replace(self.cfg, n_layers=self.n_layers)
         return decoder.init_cache(layer_cfg, batch, max_len, device=self.device)
 
@@ -114,18 +120,20 @@ class ShardModule:
         return x, None
 
     def flops(self, tokens: int) -> float:
+        """The JAX package's cost model, kept as a parity target: 12 d^2
+        per layer and token whatever the arch (an undercount for ssm)."""
         per_layer = 12 * self.cfg.d_model ** 2
         return 2.0 * tokens * per_layer * self.n_layers
 
     def weight_bytes(self) -> int:
         """Bytes the accelerator streams to apply this shard once — what
         the bandwidth term of the decode cost model charges per pass."""
-        return sum(t.numel() * t.element_size() for t in _leaves(self.params))
+        return sum(t.numel() * t.element_size() for t in leaves(self.params))
 
 
 def params_device(params: Dict[str, Any]) -> torch.device:
     """The device every tensor of ``params`` lives on (raises if mixed)."""
-    devices = {t.device for t in _leaves(params)}
+    devices = {t.device for t in leaves(params)}
     if len(devices) != 1:
         raise ValueError(f"parameters span devices {sorted(map(str, devices))}")
     return devices.pop()

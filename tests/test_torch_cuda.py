@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.mlstm_scan import mlstm_scan_cuda, mlstm_scan_plain
 from repro_torch.kernels.moe_gating import moe_gating_cuda, moe_gating_plain
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
@@ -79,6 +80,45 @@ def _gating_logits(T, E, device, seed=0, ties=False):
     return torch.from_numpy(x.astype(np.float32)).to(device)
 
 
+def _mlstm_inputs(B, H, S, hd, device, state="cache", seed=0):
+    """q, k (pre-scaled by 1/sqrt(hd)), v, log i ~ N(0,1), log f =
+    log_sigmoid(N(0,1) + 2), and a start state: "empty" (m = -1e30),
+    "cache" (zeros, m = 0) or "warm" (0.1·N(0,1), m = 0.5)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    q, k, v = (rng.normal(size=(B, H, S, hd)) for _ in range(3))
+    li = rng.normal(size=(B, H, S))
+    lf = -np.logaddexp(0.0, -(rng.normal(size=(B, H, S)) + 2.0))
+    if state == "warm":
+        C0 = 0.1 * rng.normal(size=(B, H, hd, hd))
+        n0 = 0.1 * rng.normal(size=(B, H, hd))
+    else:
+        C0, n0 = np.zeros((B, H, hd, hd)), np.zeros((B, H, hd))
+    m0 = np.full((B, H), {"empty": -1e30, "cache": 0.0, "warm": 0.5}[state])
+    return [f32(a) for a in (q, k / np.sqrt(hd), v, li, lf, C0, n0, m0)]
+
+
+def mlstm_g1(args):
+    """Gate G1: the kernel against the plain version run in float64 on the
+    same card (``ref``), beside the plain version in float32 (``p32``).
+    h: max|h - ref| <= 2 max|h_p32 - ref| + 1e-6 max|ref|; C and n within
+    2e-5 of their largest reference entry; m within 2e-5 max(1, |m_ref|).
+    Returns the readings, each over its limit (pass: <= 1)."""
+    out = mlstm_scan_cuda(*args)
+    p32 = mlstm_scan_plain(*args)
+    ref = mlstm_scan_plain(*(a.double() for a in args))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    err = lambda a, b: (a.double() - b).abs().max().item()
+    h_lim = 2 * err(p32[0], ref[0]) + 1e-6 * ref[0].abs().max().item()
+    res = {"h": err(out[0], ref[0]) / h_lim}
+    for name, a, b in zip("Cn", out[1:3], ref[1:3]):
+        res[name] = err(a, b) / (2e-5 * b.abs().max().item())
+    res["m"] = ((out[3].double() - ref[3]).abs()
+                / (2e-5 * ref[3].abs().clamp_min(1.0))).max().item()
+    return res
+
+
 # ------------------------------------------------------------------ on the CPU
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -115,6 +155,22 @@ def test_gating_on_the_cpu_takes_the_plain_version():
 def test_gating_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="on a card"):
         moe_gating_cuda(_gating_logits(8, 60, "cpu"), 4)
+
+
+def test_mlstm_on_the_cpu_takes_the_plain_version():
+    """Any head dim takes the plain version on the CPU: the kernel's
+    limits (hd a multiple of 32 up to 1024) bind only on the card."""
+    before = ops.launch_counts()
+    for hd in (64, 48):
+        args = _mlstm_inputs(1, 2, 40, hd, "cpu")
+        got, want = ops.mlstm_scan(*args), mlstm_scan_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.launch_counts() == before
+
+
+def test_mlstm_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="on q's card"):
+        mlstm_scan_cuda(*_mlstm_inputs(1, 2, 8, 64, "cpu"))
 
 
 # ------------------------------------------------------------------ on the card
@@ -182,3 +238,41 @@ def test_gating_cuda_refuses_what_one_warp_cannot_hold(cuda, E, K):
     with pytest.raises(ValueError, match="contiguous"):
         ops.moe_gating(_gating_logits(60, 8, cuda).T, 4)
     assert ops.launch_counts()["moe_gating"] == before
+
+
+#: the smoke's mLSTM shapes (xlstm-1.3b: H = 4, hd = 1024) with the
+#: serving cache's, a warm and an empty start, a ragged last chunk (65, 300
+#: rows), one decode row, the JAX kernel test's fp32 shapes, and the
+#: narrowest head the kernel takes
+MLSTM_CASES = [(1, 4, 2048, 1024, "cache"), (1, 4, 300, 1024, "cache"),
+               (2, 4, 512, 1024, "warm"), (1, 4, 1, 1024, "warm"),
+               (1, 1, 128, 64, "empty"), (2, 2, 256, 64, "empty"),
+               (1, 2, 256, 128, "empty"), (2, 1, 512, 256, "empty"),
+               (2, 3, 65, 32, "warm")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,S,hd,state", MLSTM_CASES)
+def test_mlstm_cuda_matches_plain_under_g1(cuda, B, H, S, hd, state):
+    before = ops.launch_counts()["mlstm_scan"]
+    res = mlstm_g1(_mlstm_inputs(B, H, S, hd, cuda, state, seed=S + hd))
+    assert max(res.values()) <= 1.0, res
+    assert ops.launch_counts()["mlstm_scan"] == before + 1
+
+
+@pytest.mark.gpu
+def test_mlstm_cuda_refuses_what_it_cannot_take(cuda):
+    """On the card there is no hand-over to the plain version."""
+    before = ops.launch_counts()["mlstm_scan"]
+    for hd in (48, 16, 2048):
+        with pytest.raises(ValueError, match="hd must be"):
+            ops.mlstm_scan(*_mlstm_inputs(1, 1, 8, hd, cuda))
+    args = _mlstm_inputs(1, 2, 8, 64, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ops.mlstm_scan(*(a.double() for a in args))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mlstm_scan(args[0].transpose(2, 3).contiguous().transpose(2, 3),
+                       *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        ops.mlstm_scan(*args[:5], args[5][:, :, :32].contiguous(), *args[6:])
+    assert ops.launch_counts()["mlstm_scan"] == before

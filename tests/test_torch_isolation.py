@@ -39,6 +39,8 @@ def _imported_roots(path):
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 20
+    assert {PORT / "kernels" / "mlstm_scan.py", PORT / "models" / "ssm.py",
+            PORT / "kernels" / "moe_gating.py"} <= set(files)
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -54,6 +56,8 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert len(names) > 15, names\n"
+        "assert {'repro_torch.kernels.mlstm_scan', 'repro_torch.models.ssm'}"
+        " <= set(names), names\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"

@@ -97,8 +97,24 @@ def test_long_prefill_takes_flash_branch_and_matches_jax(model):
     assert cache["len"] == S
 
 
+def test_cached_flash_prefill_refuses_a_nonempty_cache(model):
+    """A block of FLASH_MIN_SEQ or more tokens takes the flash branch,
+    which attends over the block alone from position 0: after cached
+    tokens that would ignore them, so the port raises."""
+    _, _, cfg, params, _ = model
+    S = FLASH_MIN_SEQ
+    cache = decoder.init_cache(cfg, 1, S + 1, device="cpu")
+    _, cache = decoder.prefill(params, cfg,
+                               {"tokens": torch.zeros((1, 1), dtype=torch.int32)},
+                               cache)
+    with pytest.raises(ValueError, match="empty cache"):
+        decoder.apply_layers_cached(
+            params["blocks"], cfg, torch.zeros((1, S, cfg.d_model)),
+            torch.arange(1, S + 1)[None], cache)
+
+
 def test_other_archs_are_not_ported_yet():
     gen = torch.Generator().manual_seed(0)
-    for arch in ("xlstm-1.3b", "hymba-1.5b", "whisper-small", "qwen2-vl-7b"):
+    for arch in ("hymba-1.5b", "whisper-small", "qwen2-vl-7b"):
         with pytest.raises(NotImplementedError):
             decoder.init_params(get_config(arch).reduced(), gen, "cpu")
