@@ -12,10 +12,13 @@ Phases, each printed as one JSON object per line:
 3. paged_decode_attention — the kernel at granite-8b widths (M=8, H=32,
    Hk=8, hd=128, page 32) over ragged lengths with poisoned stale pages,
    fp32 and int8, against ``paged_attention_plain`` on the card;
-4. flash_attention — the kernel at B=1, H=32, hd=128, S=2048 and a ragged
-   S=2050 (causal, window 128, non-causal), fp32 and bf16, against
-   ``flash_attention_plain``; ``scaled_dot_product_attention`` is timed
-   beside it as a yardstick only;
+4. flash_attention — the kernel at hd=128 over ``FLASH_CASES`` (B=1, H=32,
+   S=2048 causal, window 128, 17, a ragged S=2050, non-causal; ragged 97
+   with B=2; window 1; the serving layout's repeated k/v; q x 8), fp32
+   and bf16, against ``flash_attention_plain``; timed at granite-8b's
+   (H=32) and qwen2-moe-a2.7b's (H=16) causal prefill of 2048 tokens,
+   with ``scaled_dot_product_attention`` beside it as a yardstick only,
+   and the kernel's ptxas registers, spills and shared memory;
 5. moe_gating — the router-gating kernel at T in {1, 8, 2048, 2050} and
    (E, K) in {(60, 4), (16, 4), (64, 8)}, plus duplicated logit columns
    (ties), against ``moe_gating_plain``: ids exactly, weights and
@@ -76,6 +79,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -228,22 +232,74 @@ def paged_phase(torch, flush):
     return res
 
 
-def flash_phase(torch, flush):
+def flash_ptxas(log: str) -> dict:
+    """Registers, spill bytes and stack of each flash kernel instantiation,
+    from the ``-Xptxas -v`` build log (empty when nothing was built)."""
+    res, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S*flash_fwd_kernel\S*)'", ln)
+        if m:
+            hd = re.search(r"Li(\d+)EE", m.group(1)).group(1)
+            key = ("bf16" if "bfloat16" in m.group(1) else "fp32") + f"_hd{hd}"
+            res[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            res[key].update(stack_bytes=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            res[key]["registers"] = int(m.group(1))
+            key = None
+    return res
+
+
+#: (name, B, H, Sq, Sk, causal, window, form): the served prefill, ragged
+#: tiles, narrow windows, a batch, the serving layout ("gqa": k/v of
+#: (B, S, H/4, hd) repeat_interleaved, as models/common.py builds them)
+#: and large scores ("large": q x 8, where the running-max rescale matters)
+FLASH_CASES = [("causal", 1, 32, 2048, 2048, True, 0, "bshd"),
+               ("window128", 1, 32, 2048, 2048, True, 128, "bshd"),
+               ("ragged", 1, 32, 2050, 2050, True, 0, "bshd"),
+               ("noncausal", 1, 32, 128, 2048, False, 0, "bshd"),
+               ("ragged97_B2", 2, 8, 97, 97, True, 0, "bshd"),
+               ("window17", 1, 32, 2048, 2048, True, 17, "bshd"),
+               ("window1", 1, 8, 300, 300, True, 1, "bshd"),
+               ("gqa", 1, 32, 2048, 2048, True, 0, "gqa"),
+               ("large", 1, 32, 2048, 2048, True, 0, "large")]
+
+
+def flash_inputs(torch, B, H, Sq, Sk, hd, dtype, form, g):
+    """q, k, v on the card in the main path's layout: (B, S, H, hd) viewed
+    as (B, H, S, hd)."""
+    q, k, v = (torch.randn((B, S, H, hd), generator=g, device="cuda")
+               .to(dtype).transpose(1, 2) for S in (Sq, Sk, Sk))
+    if form == "gqa":
+        k, v = (torch.repeat_interleave(t.transpose(1, 2)[:, :, ::4], 4, dim=2)
+                .transpose(1, 2) for t in (k, v))
+    elif form == "large":
+        q = q * 8
+    return q, k, v
+
+
+def flash_phase(torch, flush, build_log: str):
+    import ctypes
+
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
 
-    dev = torch.device("cuda")
-    B, H, hd = 1, 32, 128
-    g = torch.Generator(device=dev).manual_seed(1)
-    cases = [("causal", 2048, 2048, True, 0), ("window128", 2048, 2048, True, 128),
-             ("ragged", 2050, 2050, True, 0), ("noncausal", 128, 2048, False, 0)]
+    hd = 128
+    g = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, Sq, Sk, causal, window in cases:
-            # the main path's layout: (B, S, H, hd) viewed as (B, H, S, hd)
-            q, k, v = (torch.randn((B, S, H, hd), generator=g, device=dev)
-                       .to(dtype).transpose(1, 2) for S in (Sq, Sk, Sk))
+        for name, B, H, Sq, Sk, causal, window, form in FLASH_CASES:
+            q, k, v = flash_inputs(torch, B, H, Sq, Sk, hd, dtype, form, g)
             got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
             want = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
@@ -254,32 +310,44 @@ def flash_phase(torch, flush):
             tol = 1e-4 if dtype == torch.float32 else 2e-2
             require(errs[key] <= tol, f"flash {key}: err {errs[key]} > {tol}")
 
-    # times at the main path's case: causal fp32 prefill of 2048 tokens
-    S = 2048
-    q, k, v = (torch.randn((B, S, H, hd), generator=g, device=dev)
-               .transpose(1, 2) for _ in range(3))
-    flops = 4 * B * H * hd * (S * (S + 1) // 2)    # only unmasked pairs
-    nbytes = 4 * B * H * S * hd * 4                # q, k, v read, out written
-    res = {
-        "max_abs_err": errs,
-        "max_abs_err_fp32": max(v for k, v in errs.items()
-                                if k.endswith("float32")),
-        "kernel_ms": time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v),
-                             flush=flush),
-        "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(q, k, v),
-                            iters=5, flush=flush),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), flush=flush),
-        "bound_ms": max(flops / PEAK_FLOPS["float32"],
-                        nbytes / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": ("operations" if flops / PEAK_FLOPS["float32"]
-                     >= nbytes / HBM_BYTES_PER_S else "bytes"),
-    }
-    bq, kq_, vq_ = (t.to(torch.bfloat16) for t in (q, k, v))
-    res["kernel_bf16_ms"] = time_ms(
-        torch, lambda: fa.flash_attention_cuda(bq, kq_, vq_), flush=flush)
-    res["bound_bf16_ms"] = max(flops / PEAK_FLOPS["bfloat16"],
-                               nbytes / 2 / HBM_BYTES_PER_S) * 1e3
+    def timed(B, H, S, dtype=torch.float32):
+        """Kernel, plain and SDPA times at a causal prefill of S tokens,
+        and the bound: only the unmasked pairs' FLOP, each input read and
+        the output written once."""
+        q, k, v = flash_inputs(torch, B, H, S, S, hd, dtype, "bshd", g)
+        flops = 4 * B * H * hd * (S * (S + 1) // 2)
+        nbytes = 4 * B * H * S * hd * q.element_size()
+        peak = PEAK_FLOPS[str(dtype).split(".")[1]]
+        res = {"kernel_ms": time_ms(
+            torch, lambda: fa.flash_attention_cuda(q, k, v), flush=flush)}
+        if dtype == torch.float32:
+            res["plain_ms"] = time_ms(
+                torch, lambda: fa.flash_attention_plain(q, k, v), iters=5,
+                flush=flush)
+            res["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), flush=flush)
+        res["bound_ms"] = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+        res["bound_by"] = ("operations" if flops / peak
+                           >= nbytes / HBM_BYTES_PER_S else "bytes")
+        return res
+
+    # the main path's case: granite-8b's causal fp32 prefill of 2048 tokens
+    B, H, S = 1, 32, 2048
+    res = {"max_abs_err": errs,
+           "max_abs_err_fp32": max(v for k, v in errs.items()
+                                   if k.endswith("float32")),
+           **timed(B, H, S)}
+    bf16 = timed(B, H, S, torch.bfloat16)
+    res["kernel_bf16_ms"] = bf16["kernel_ms"]
+    res["bound_bf16_ms"] = bf16["bound_ms"]
+    # qwen2-moe-a2.7b's prefill: 16 heads
+    res["H16"] = timed(B, 16, S)
+    lib = build.load("flash_attention", fa._SIGNATURES)
+    smem = lib.repro_flash_attention_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int]
+    res["ptxas"] = flash_ptxas(build_log)
+    res["dynamic_smem_bytes"] = {f"hd{d}": smem(d) for d in (64, 128)}
     emit({"phase": "flash_attention", "B": B, "H": H, "hd": hd, "S": S, **res})
     return res
 
@@ -1106,7 +1174,7 @@ def main() -> int:
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB
     paged = paged_phase(torch, flush)
-    flash = flash_phase(torch, flush)
+    flash = flash_phase(torch, flush, logs.get("flash_attention", ""))
     gating = gating_phase(torch, flush)
     mlstm = mlstm_phase(torch, flush)
     del flush

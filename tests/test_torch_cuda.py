@@ -192,13 +192,32 @@ def test_paged_cuda_matches_plain(cuda, quant, hk, rep, hd):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Sq,Sk,causal,window", [
-    (2048, 2048, True, 0), (2048, 2048, True, 128), (2050, 2050, True, 0),
-    (128, 2048, False, 0), (100, 300, True, 64), (1, 1, True, 0)])
+@pytest.mark.parametrize("Sq,Sk,causal,window,B,H,form", [
+    (2048, 2048, True, 0, 1, 4, "bshd"), (2048, 2048, True, 128, 1, 4, "bshd"),
+    (2050, 2050, True, 0, 1, 4, "bshd"), (128, 2048, False, 0, 1, 4, "bshd"),
+    (100, 300, True, 64, 1, 4, "bshd"), (1, 1, True, 0, 1, 4, "bshd"),
+    # ragged against the 64-row query tile and the 32-key tile
+    (65, 65, True, 0, 1, 4, "bshd"), (97, 97, True, 0, 1, 4, "bshd"),
+    (65, 97, False, 0, 1, 4, "bshd"),
+    # windows narrower than a key tile
+    (300, 300, True, 1, 1, 4, "bshd"), (300, 300, True, 17, 1, 4, "bshd"),
+    (100, 300, True, 17, 1, 4, "bshd"),
+    (130, 130, True, 0, 2, 4, "bshd"), (130, 130, True, 0, 1, 1, "bshd"),
+    # k/v of (B, S, Hk, hd) repeat_interleaved to H heads, as the models
+    # build them
+    (2048, 2048, True, 0, 1, 8, "gqa"), (97, 97, True, 17, 2, 8, "gqa"),
+    # q x 8: large scores, where the running-max rescale matters
+    (2048, 2048, True, 0, 1, 4, "large"), (300, 300, False, 0, 1, 4, "large")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128])
-def test_flash_cuda_matches_plain(cuda, Sq, Sk, causal, window, dtype, hd):
-    q, k, v = _flash_inputs(1, 4, Sq, Sk, hd, dtype, cuda, seed=Sq + window)
+def test_flash_cuda_matches_plain(cuda, Sq, Sk, causal, window, B, H, form,
+                                  dtype, hd):
+    q, k, v = _flash_inputs(B, H, Sq, Sk, hd, dtype, cuda, seed=Sq + window)
+    if form == "gqa":
+        k, v = (torch.repeat_interleave(t.transpose(1, 2)[:, :, ::4], 4, dim=2)
+                .transpose(1, 2) for t in (k, v))
+    elif form == "large":
+        q = q * 8
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
