@@ -48,7 +48,8 @@ Phases, each printed as one JSON object per line:
    real inputs in every mLSTM layer, and a profile of a few steps.
 
 The mlstm phase (after moe_gating) holds the mLSTM kernel to gate G1 at
-xlstm-1.3b's widths, and small_parity also serves a reduced xlstm-1.3b on
+xlstm-1.3b's widths and reports its two kernels' ptxas registers, spills
+and shared memory, and small_parity also serves a reduced xlstm-1.3b on
 the card and on the CPU in float32 and float64 under gate G2.  The gates'
 bounds are fixed in advance, each derived from a float64 reference:
 
@@ -232,16 +233,17 @@ def paged_phase(torch, flush):
     return res
 
 
-def flash_ptxas(log: str) -> dict:
-    """Registers, spill bytes and stack of each flash kernel instantiation,
-    from the ``-Xptxas -v`` build log (empty when nothing was built)."""
+def ptxas_report(log: str, key_of) -> dict:
+    """Registers, static shared memory, spill bytes and stack of each entry
+    function that ``key_of`` names (mangled name -> key, or None to skip),
+    from an ``-Xptxas -v`` build log (empty when nothing was built)."""
     res, key = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S*flash_fwd_kernel\S*)'", ln)
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            hd = re.search(r"Li(\d+)EE", m.group(1)).group(1)
-            key = ("bf16" if "bfloat16" in m.group(1) else "fp32") + f"_hd{hd}"
-            res[key] = {}
+            key = key_of(m.group(1))
+            if key is not None:
+                res[key] = {}
             continue
         if key is None:
             continue
@@ -253,9 +255,27 @@ def flash_ptxas(log: str) -> dict:
                             spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", ln)
         if m:
-            res[key]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            res[key].update(registers=int(m.group(1)), static_smem_bytes=int(
+                smem.group(1)) if smem else 0)
             key = None
     return res
+
+
+def flash_ptxas(log: str) -> dict:
+    """ptxas's report of each flash kernel instantiation."""
+    def key_of(name):
+        if "flash_fwd_kernel" not in name:
+            return None
+        hd = re.search(r"Li(\d+)EE", name).group(1)
+        return ("bf16" if "bfloat16" in name else "fp32") + f"_hd{hd}"
+    return ptxas_report(log, key_of)
+
+
+def mlstm_ptxas(log: str) -> dict:
+    """ptxas's report of the mLSTM scan's two kernels."""
+    return ptxas_report(log, lambda name: "prep" if "mlstm_prep_kernel" in name
+                        else "walk" if "mlstm_walk_kernel" in name else None)
 
 
 #: (name, B, H, Sq, Sk, causal, window, form): the served prefill, ragged
@@ -494,11 +514,32 @@ MLSTM_CASES = [("S2048_cache", 1, 4, 2048, 1024, "cache"),
                ("jax_2x1x512x256", 2, 1, 512, 256, "empty")]
 
 
-def mlstm_phase(torch, flush):
+def prep_ms(torch, lib, args, flush) -> float:
+    """Time of the mLSTM kernel's first pass alone (a part of the scan's
+    time), launched through its C entry with the scratch made beforehand,
+    so that the wrapper's host work is not timed."""
+    q, k, _, li, lf, _, _, m0 = args
+    B, H, S, hd = q.shape
+    buf = torch.empty(lib.repro_mlstm_scratch_floats(B * H, S), device="cuda")
+    m_T = torch.empty_like(m0)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        require(lib.repro_mlstm_prep(
+            q.data_ptr(), k.data_ptr(), li.data_ptr(), lf.data_ptr(),
+            m0.data_ptr(), buf.data_ptr(), m_T.data_ptr(), B * H, S, hd,
+            stream) == 0, "mlstm prep launch failed")
+    return time_ms(torch, run, iters=10, flush=flush)
+
+
+def mlstm_phase(torch, flush, build_log: str):
     """The mLSTM kernel under gate G1 at every case, with its time (cold
-    L2), the plain version's, and the bound from the TPU kernel's work."""
+    L2) and its first pass's, the plain version's, the bound from the TPU
+    kernel's work, and ptxas's report of its two kernels."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import mlstm_scan as ms
 
+    lib = build.load("mlstm_scan", ms._SIGNATURES)
     g = torch.Generator(device="cuda").manual_seed(4)
     cases = {}
     for name, B, H, S, hd, start in MLSTM_CASES:
@@ -511,6 +552,7 @@ def mlstm_phase(torch, flush):
         res.update({
             "kernel_ms": time_ms(torch, lambda: ms.mlstm_scan_cuda(*args),
                                  iters=10, flush=flush),
+            "prep_ms": prep_ms(torch, lib, args, flush),
             "plain_ms": time_ms(torch, lambda: ms.mlstm_scan_plain(*args),
                                 iters=5, flush=flush),
             "flop": flops, "bytes": nbytes,
@@ -519,7 +561,9 @@ def mlstm_phase(torch, flush):
         cases[name] = res
         del args
     # no single PyTorch call computes the chunkwise mLSTM recurrence
-    emit({"phase": "mlstm", "cases": cases, "library_ms": None})
+    emit({"phase": "mlstm", "cases": cases, "ptxas": mlstm_ptxas(build_log),
+          "walk_dynamic_smem_bytes": lib.repro_mlstm_walk_smem_bytes(1024),
+          "library_ms": None})
     return cases
 
 
@@ -1176,7 +1220,7 @@ def main() -> int:
     paged = paged_phase(torch, flush)
     flash = flash_phase(torch, flush, logs.get("flash_attention", ""))
     gating = gating_phase(torch, flush)
-    mlstm = mlstm_phase(torch, flush)
+    mlstm = mlstm_phase(torch, flush, logs.get("mlstm_scan", ""))
     del flush
     small_parity_phase(torch)
     xlstm_parity_phase(torch)

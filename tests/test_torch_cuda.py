@@ -16,7 +16,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.mlstm_scan import mlstm_scan_cuda, mlstm_scan_plain
+from repro_torch.kernels.mlstm_scan import (mlstm_prep_cuda, mlstm_prep_plain,
+                                            mlstm_scan_cuda, mlstm_scan_plain)
 from repro_torch.kernels.moe_gating import moe_gating_cuda, moe_gating_plain
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
@@ -80,21 +81,28 @@ def _gating_logits(T, E, device, seed=0, ties=False):
     return torch.from_numpy(x.astype(np.float32)).to(device)
 
 
+#: m0 of each start state; "high" and "low" are warm memories with m far
+#: from 0 (the memory outweighs the chunk's own rows, or the reverse)
+MLSTM_M0 = {"empty": -1e30, "cache": 0.0, "warm": 0.5, "high": 20.0,
+            "low": -20.0}
+
+
 def _mlstm_inputs(B, H, S, hd, device, state="cache", seed=0):
     """q, k (pre-scaled by 1/sqrt(hd)), v, log i ~ N(0,1), log f =
     log_sigmoid(N(0,1) + 2), and a start state: "empty" (m = -1e30),
-    "cache" (zeros, m = 0) or "warm" (0.1·N(0,1), m = 0.5)."""
+    "cache" (zeros, m = 0), or a 0.1·N(0,1) memory with m = 0.5 ("warm"),
+    20 ("high") or -20 ("low")."""
     rng = np.random.default_rng(seed)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
     q, k, v = (rng.normal(size=(B, H, S, hd)) for _ in range(3))
     li = rng.normal(size=(B, H, S))
     lf = -np.logaddexp(0.0, -(rng.normal(size=(B, H, S)) + 2.0))
-    if state == "warm":
+    if state in ("warm", "high", "low"):
         C0 = 0.1 * rng.normal(size=(B, H, hd, hd))
         n0 = 0.1 * rng.normal(size=(B, H, hd))
     else:
         C0, n0 = np.zeros((B, H, hd, hd)), np.zeros((B, H, hd))
-    m0 = np.full((B, H), {"empty": -1e30, "cache": 0.0, "warm": 0.5}[state])
+    m0 = np.full((B, H), MLSTM_M0[state])
     return [f32(a) for a in (q, k / np.sqrt(hd), v, li, lf, C0, n0, m0)]
 
 
@@ -171,6 +179,12 @@ def test_mlstm_on_the_cpu_takes_the_plain_version():
 def test_mlstm_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="on q's card"):
         mlstm_scan_cuda(*_mlstm_inputs(1, 2, 8, 64, "cpu"))
+
+
+def test_mlstm_prep_cuda_refuses_cpu_tensors():
+    q, k, _, li, lf, _, _, m0 = _mlstm_inputs(1, 2, 8, 64, "cpu")
+    with pytest.raises(ValueError, match="on q's card"):
+        mlstm_prep_cuda(q, k, li, lf, m0)
 
 
 # ------------------------------------------------------------------ on the card
@@ -262,12 +276,19 @@ def test_gating_cuda_refuses_what_one_warp_cannot_hold(cuda, E, K):
 #: the smoke's mLSTM shapes (xlstm-1.3b: H = 4, hd = 1024) with the
 #: serving cache's, a warm and an empty start, a ragged last chunk (65, 300
 #: rows), one decode row, the JAX kernel test's fp32 shapes, and the
-#: narrowest head the kernel takes
+#: narrowest head the kernel takes; then the edges of the kernel's 64-row
+#: chunks (S = 63, 64, 65, one row, B*H = 12), head dims 32, 64, 96 (its
+#: narrow-head paths) and 1024, and warm starts with m far from 0
 MLSTM_CASES = [(1, 4, 2048, 1024, "cache"), (1, 4, 300, 1024, "cache"),
                (2, 4, 512, 1024, "warm"), (1, 4, 1, 1024, "warm"),
                (1, 1, 128, 64, "empty"), (2, 2, 256, 64, "empty"),
                (1, 2, 256, 128, "empty"), (2, 1, 512, 256, "empty"),
-               (2, 3, 65, 32, "warm")]
+               (2, 3, 65, 32, "warm"),
+               (1, 2, 63, 64, "warm"), (1, 2, 64, 1024, "cache"),
+               (1, 2, 65, 1024, "warm"), (1, 1, 1, 32, "empty"),
+               (3, 4, 129, 64, "warm"), (1, 2, 100, 96, "warm"),
+               (1, 2, 200, 64, "high"), (1, 2, 200, 1024, "low"),
+               (1, 4, 256, 1024, "high")]
 
 
 @pytest.mark.gpu
@@ -277,6 +298,43 @@ def test_mlstm_cuda_matches_plain_under_g1(cuda, B, H, S, hd, state):
     res = mlstm_g1(_mlstm_inputs(B, H, S, hd, cuda, state, seed=S + hd))
     assert max(res.values()) <= 1.0, res
     assert ops.launch_counts()["mlstm_scan"] == before + 1
+
+
+#: the first pass alone, against its plain function in float64: ragged,
+#: one row, several chunks from each start
+MLSTM_PREP_CASES = [(1, 4, 2048, 1024, "cache"), (2, 2, 300, 64, "empty"),
+                    (1, 2, 1, 32, "warm"), (3, 4, 129, 96, "high"),
+                    (1, 2, 200, 64, "low")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,S,hd,state", MLSTM_PREP_CASES)
+def test_mlstm_prep_cuda_matches_plain(cuda, B, H, S, hd, state):
+    """What the first pass hands the walk, against mlstm_prep_plain run in
+    float64 on the same inputs.  P and its row sums are fp32 sums of up to
+    1024 products times an exponential: within 1e-5 of their largest
+    entry; the weights w, wk and carry lie in [0, 1]: within 1e-5; the
+    stabilisers m_t, m and m_T within 2e-5 max(1, |m|), as gate G1's m.
+    Rows past S hold zeros."""
+    q, k, _, li, lf, _, _, m0 = _mlstm_inputs(B, H, S, hd, cuda, state,
+                                              seed=S + hd)
+    before = ops.launch_counts()["mlstm_scan"]
+    got = mlstm_prep_cuda(q, k, li, lf, m0)
+    want = mlstm_prep_plain(*(a.double() for a in (q, k, li, lf, m0)))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mlstm_scan"] == before
+    for name in ("P", "rs"):
+        a, b = getattr(got, name).double(), getattr(want, name)
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item(), name
+    for name in ("w", "wk", "carry"):
+        a, b = getattr(got, name).double(), getattr(want, name)
+        assert (a - b).abs().max().item() <= 1e-5, name
+    for name in ("mt", "m", "m_T"):
+        a, b = getattr(got, name).double(), getattr(want, name)
+        assert ((a - b).abs() / b.abs().clamp_min(1.0)).max().item() <= 2e-5, name
+    past = torch.arange(got.w.shape[-1], device=cuda) >= S
+    for name in ("w", "mt", "rs", "wk"):
+        assert not getattr(got, name)[..., past].any(), name
 
 
 @pytest.mark.gpu

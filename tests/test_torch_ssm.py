@@ -8,6 +8,10 @@
   (``_make_chunk_fn`` with the same W) at 2e-5.  The Pallas mLSTM kernel
   does not run on this jax (it asks for ``pltpu.TPUCompilerParams``), so
   it is no oracle here.
+* The CUDA kernel's decomposition in float64: the plain scan at the
+  kernel's chunk width (64, and 128) against the default width and the
+  oracle, and the plain versions of its two passes
+  (``mlstm_prep_plain``, ``mlstm_walk_plain``) composed against the scan.
 * ``run_mlstm`` (its three forms) and ``run_slstm`` through the weight
   bridge, 2e-5; the chunked-equals-quadratic and warm-start analogues of
   the JAX package's own tests.
@@ -36,7 +40,8 @@ from repro.serving.sharded import ShardModule as JaxShardModule
 from repro_torch.configs import get_config
 from repro_torch.core.simnet import Sim
 from repro_torch.kernels import ops
-from repro_torch.kernels.mlstm_scan import mlstm_scan_plain
+from repro_torch.kernels.mlstm_scan import (KERNEL_CHUNK, mlstm_prep_plain,
+                                            mlstm_scan_plain, mlstm_walk_plain)
 from repro_torch.launch import serve
 from repro_torch.models import decoder, ssm
 from repro_torch.params import params_from_numpy, params_to_numpy
@@ -177,6 +182,68 @@ def test_scan_plain_runs_float64_inputs_in_float64():
     want = _oracle(args)
     np.testing.assert_allclose(got[0].numpy(), want[0], atol=SCAN_TOL,
                                rtol=SCAN_TOL)
+
+
+#: the CUDA kernel's decomposition on the CPU, in float64: a ragged S, one
+#: row, warm starts, the serving cache's start, a chunk plus one row
+DECOMP_CASES = {
+    "ragged_300": (1, 2, 300, 64, "empty"),
+    "S1_warm": (2, 2, 1, 64, "warm"),
+    "warm_512": (1, 2, 512, 64, "warm"),
+    "cache_256": (2, 1, 256, 32, "cache"),
+    "warm_65": (1, 2, 65, 32, "warm"),
+}
+
+
+def _f64(args):
+    return [torch.from_numpy(a).double() for a in args]
+
+
+@pytest.mark.parametrize("W", [KERNEL_CHUNK, 2 * KERNEL_CHUNK])
+@pytest.mark.parametrize("case", sorted(DECOMP_CASES))
+def test_scan_plain_at_the_kernels_chunk_width(case, W):
+    """``chunk=W`` (the kernel's 64 rows, and 128; the last chunk ragged)
+    computes run_mlstm's function: in float64 within 1e-10 of the default
+    width's run (W = 256 or one chunk of S), and within the JAX kernel
+    test's tolerance of the sequential oracle ``mlstm_chunk_ref``."""
+    B, H, S, hd, kind = DECOMP_CASES[case]
+    args = _scan_inputs(B, H, S, hd, S + hd) + _state(B, H, hd, kind, S)
+    got = mlstm_scan_plain(*_f64(args), chunk=W)
+    ref = mlstm_scan_plain(*_f64(args))
+    assert all(t.dtype == torch.float64 for t in got)
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-10 * max(1.0, b.abs().max().item())
+    want = _oracle(args)
+    np.testing.assert_allclose(got[0].numpy(), want[0], atol=SCAN_TOL,
+                               rtol=SCAN_TOL)
+    for a, b in zip(_true_scale([t.numpy() for t in got[1:]]),
+                    _true_scale(want[1:])):
+        np.testing.assert_allclose(a, b, atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(DECOMP_CASES))
+def test_prep_and_walk_compose_to_the_scan(case):
+    """The kernel's two passes in plain PyTorch: what the first hands the
+    second, walked, is ``mlstm_scan_plain`` at the kernel's chunk width
+    (float64, 1e-12 of the largest entry), and the m chain ends at its
+    m.  Rows past S hold zeros, and P is causal."""
+    B, H, S, hd, kind = DECOMP_CASES[case]
+    q, k, v, li, lf, C0, n0, m0 = _f64(
+        _scan_inputs(B, H, S, hd, S + hd) + _state(B, H, hd, kind, S))
+    prep = mlstm_prep_plain(q, k, li, lf, m0)
+    h, C, n = mlstm_walk_plain(q, k, v, C0, n0, prep)
+    want = mlstm_scan_plain(q, k, v, li, lf, C0, n0, m0, chunk=KERNEL_CHUNK)
+    for a, b in zip((h, C, n, prep.m_T), want):
+        assert a.dtype == torch.float64
+        assert (a - b).abs().max().item() <= 1e-12 * max(1.0, b.abs().max().item())
+    W = KERNEL_CHUNK
+    nC = -(-S // W)
+    assert prep.P.shape == (B, H, nC, W, W)
+    assert prep.carry.shape == prep.m.shape == (B, H, nC)
+    assert torch.equal(prep.m[..., 0], m0)
+    assert not prep.P.triu(diagonal=1).any()
+    for t in (prep.w, prep.mt, prep.rs, prep.wk):
+        assert t.shape == (B, H, nC * W) and not t[..., S:].any()
 
 
 # ------------------------------------------------------------ the layers
