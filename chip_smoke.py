@@ -490,15 +490,21 @@ def g1_holds(res) -> bool:
     return all(v <= 1.0 for k, v in res.items() if k.endswith("_over_limit"))
 
 
-def mlstm_work(B, H, S, hd):
-    """The TPU kernel's four products at full W x W (no causal saving),
-    W by the model's chunk rule, and the bytes each input and output
-    moves once."""
-    W = 256 if S % 256 == 0 else S
-    flops = B * H * (S // W) * (4 * W * W * hd + 4 * W * hd * hd)
+def mlstm_work(B, H, S, hd, W):
+    """The least work of the scan in chunks of W rows: per head and row
+    q·C and the update's (k·wk)ᵀ·v (2 hd² FLOP each), and per chunk of Wc
+    rows the causal half of q kᵀ and of P·v (hd Wc (Wc + 1) FLOP each);
+    the bytes each input and output moves once; and, for comparison with
+    earlier rows, the TPU kernel's four products at full W x W (no causal
+    saving) with W by the model's chunk rule."""
+    chunks = [min(W, S - t0) for t0 in range(0, S, W)]
+    flops = B * H * (4 * S * hd * hd
+                     + 2 * hd * sum(w * (w + 1) for w in chunks))
     nbytes = 4 * (4 * B * H * S * hd + 2 * B * H * S + 2 * B * H * hd * hd
                   + 2 * B * H * hd + 2 * B * H)
-    return flops, nbytes
+    Wt = 256 if S % 256 == 0 else S
+    flops_w256 = B * H * (S // Wt) * (4 * Wt * Wt * hd + 4 * Wt * hd * hd)
+    return flops, nbytes, flops_w256
 
 
 #: (name, B, H, S, hd, start): xlstm-1.3b's widths (H = 4, hd = 1024) for
@@ -518,9 +524,12 @@ def prep_ms(torch, lib, args, flush) -> float:
     """Time of the mLSTM kernel's first pass alone (a part of the scan's
     time), launched through its C entry with the scratch made beforehand,
     so that the wrapper's host work is not timed."""
+    from repro_torch.kernels import mlstm_scan as ms
+
     q, k, _, li, lf, _, _, m0 = args
     B, H, S, hd = q.shape
-    buf = torch.empty(lib.repro_mlstm_scratch_floats(B * H, S), device="cuda")
+    buf = torch.empty(ms.scratch_layout(lib, B * H, S, hd)[1][-1],
+                      device="cuda")
     m_T = torch.empty_like(m0)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -534,8 +543,10 @@ def prep_ms(torch, lib, args, flush) -> float:
 
 def mlstm_phase(torch, flush, build_log: str):
     """The mLSTM kernel under gate G1 at every case, with its time (cold
-    L2) and its first pass's, the plain version's, the bound from the TPU
-    kernel's work, and ptxas's report of its two kernels."""
+    L2) and its first pass's, the plain version's, the bound from the
+    scan's least work at the kernel's chunk width (and, beside it, from
+    the TPU kernel's work, as earlier rows were), and ptxas's report of
+    its two kernels."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mlstm_scan as ms
 
@@ -546,7 +557,8 @@ def mlstm_phase(torch, flush, build_log: str):
         args = mlstm_inputs(torch, B, H, S, hd, start, g)
         res = mlstm_g1(torch, ms.mlstm_scan_cuda(*args), args)
         require(g1_holds(res), f"mlstm {name}: gate G1 fails: {res}")
-        flops, nbytes = mlstm_work(B, H, S, hd)
+        W = ms.scratch_layout(lib, B * H, S, hd)[0]
+        flops, nbytes, flops_w256 = mlstm_work(B, H, S, hd, W)
         t_ops = flops / PEAK_FLOPS["float32"]
         t_bytes = nbytes / HBM_BYTES_PER_S
         res.update({
@@ -555,9 +567,12 @@ def mlstm_phase(torch, flush, build_log: str):
             "prep_ms": prep_ms(torch, lib, args, flush),
             "plain_ms": time_ms(torch, lambda: ms.mlstm_scan_plain(*args),
                                 iters=5, flush=flush),
-            "flop": flops, "bytes": nbytes,
+            "chunk": W, "flop": flops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop_w256": flops_w256,
+            "bound_ms_w256": max(flops_w256 / PEAK_FLOPS["float32"],
+                                 t_bytes) * 1e3})
         cases[name] = res
         del args
     # no single PyTorch call computes the chunkwise mLSTM recurrence

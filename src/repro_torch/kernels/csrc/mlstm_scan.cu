@@ -24,11 +24,12 @@
 //     over the gates alone: each block folds the chunks before its own (a
 //     thread each, folded in order, so every block sees the same m).
 //     Then the row stabilisers m_t and weights w_t, the chunk-end weights
-//     wk_s and carry, and the causal score tile P = (q k^T) e^{logD - m_t}
-//     with its row sums, all written to a scratch buffer (B*H*S*W floats
-//     for P: 2 MiB at B=1, H=4, S=2048).  The score product is thus done
-//     once per chunk, on the CUDA cores (fp32 products summed per 32 head
-//     dims, the slices added in fp64).
+//     wk_s and carry, the causal score tile P = (q k^T) e^{logD - m_t}
+//     with its row sums, and n's increment sum_s k_s wk_s (fp64), all
+//     written to a scratch buffer (B*H*S*W floats for P: 2 MiB at B=1,
+//     H=4, S=2048).  The score product is thus done once per chunk, on
+//     the CUDA cores (fp32 products summed per 32 head dims, the slices
+//     added in fp64).
 //   * The gates are scalar work, so the prep takes them in fp64 (F, the m
 //     chain, m_t and the exponents of w, wk, carry and P), rounding each
 //     result to fp32 once.  In fp32, the rounding of the chain's F_T (a
@@ -40,9 +41,10 @@
 //   * mlstm_walk_kernel, one block of 8 warps per (batch*head, 32 columns
 //     of C): only what needs C.  Its 32 x hd tile of C^T (132 KB at
 //     hd = 1024) and all of n stay in shared memory while the block walks
-//     the chunks; per chunk it reads P and the gates from L2 and computes
-//     q C_tile and q.n, P v_tile, the output tile, and the update
-//     C_tile = carry C_tile + (k wk)^T v_tile.
+//     the chunks; per chunk it reads P, the gates and n's increment from
+//     L2 and computes q C_tile and q.n, P v_tile, the output tile, and the
+//     updates C_tile = carry C_tile + (k wk)^T v_tile and n = carry n +
+//     increment (hd values, in every block; block column 0 writes n out).
 //   * The three products run on the tensor cores as mma.sync.m16n8k8 TF32
 //     in the 3xTF32 split (big * big + big * small + small * big, each
 //     fp32 operand split by integer rounding), close to fp32.  The tensor
@@ -58,9 +60,10 @@
 //     G1 on a warm start with m = 20.  So q.n is taken in fp64 on the CUDA
 //     cores (the products of fp32 operands are exact there), and so are
 //     the denominator, P's row sums and the score tile's sums across
-//     head-dim slices.  n itself (hd values) is carried in fp64: at
-//     64-row chunks it is rescaled by carry at every chunk's end, and in
-//     fp32 those roundings alone took such rows close to the gate.
+//     head-dim slices.  n itself (hd values) and its increments are
+//     carried in fp64: at 64-row chunks n is rescaled by carry at every
+//     chunk's end, and in fp32 those roundings alone took such rows close
+//     to the gate.
 //   * Fragment indices are relabelled so that every operand is read as
 //     float2: in a k step, slot t stands for head dim 2t and slot t + 4
 //     for 2t + 1 (the sum over k does not see the order); C^T rows of hd + 8
@@ -74,7 +77,7 @@
 //
 // Layouts (fp32, contiguous; q, k, v, h, C0, C 16-byte aligned): q, k, v, h
 // (BH, S, hd); log_i, log_f (BH, S); C0, C (BH, hd, hd); n0, n (BH, hd);
-// m0, m (BH).  Scratch: see repro_mlstm_scratch_floats.
+// m0, m (BH).  Scratch: see repro_mlstm_scratch_layout.
 
 #include <cuda_runtime.h>
 
@@ -93,9 +96,12 @@ constexpr int kMaxHd = 1024;
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-// What the prep pass hands the walk, per batch*head: P [nC][W][W]; the
-// per-row arrays [nC * W] (rows past S hold zeros); per chunk [nC].
+// What the prep pass hands the walk, per batch*head: nk [nC][hd]; P
+// [nC][W][W]; the per-row arrays [nC * W] (rows past S hold zeros); per
+// chunk [nC].  Each array covers all heads, in this order in the scratch
+// buffer, nk first so that its doubles are aligned.
 struct Scratch {
+  double* nk;     // sum_s k_s wk_s, n's increment over the chunk
   float* P;       // (q k^T) e^{logD - m_t}, causal, zero past S
   float* w;       // w_t = e^{F_t + m - m_t}
   float* mt;      // m_t
@@ -105,22 +111,25 @@ struct Scratch {
   float* m;       // m entering the chunk
 };
 
-Scratch scratch_views(float* base, int BH, int nC) {
-  const long long rows = static_cast<long long>(BH) * nC * kW;
-  Scratch s;
-  s.P = base;
-  s.w = s.P + rows * kW;
-  s.mt = s.w + rows;
-  s.rs = s.mt + rows;
-  s.wk = s.rs + rows;
-  s.carry = s.wk + rows;
-  s.m = s.carry + static_cast<long long>(BH) * nC;
-  return s;
+constexpr int kArrays = 8;
+
+// Offsets of the arrays of Scratch, in floats from the buffer's start, in
+// the struct's order; off[kArrays] is the buffer's length.
+void scratch_offsets(int BH, int S, int hd, long long (&off)[kArrays + 1]) {
+  const long long chunks = static_cast<long long>(BH) * ((S + kW - 1) / kW);
+  const long long rows = chunks * kW;
+  const long long len[kArrays] = {2 * chunks * hd, rows * kW, rows, rows,
+                                  rows, rows, chunks, chunks};
+  off[0] = 0;
+  for (int i = 0; i < kArrays; ++i) off[i + 1] = off[i] + len[i];
 }
 
-long long scratch_floats(int BH, int S) {
-  const long long nC = (S + kW - 1) / kW;
-  return BH * nC * (kW * kW + 4 * kW + 2);
+Scratch scratch_views(float* base, int BH, int S, int hd) {
+  long long off[kArrays + 1];
+  scratch_offsets(BH, S, hd, off);
+  return Scratch{reinterpret_cast<double*>(base), base + off[1],
+                 base + off[2], base + off[3], base + off[4], base + off[5],
+                 base + off[6], base + off[7]};
 }
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -159,6 +168,7 @@ mlstm_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __shared__ __align__(16) float qT[kDK * kLdT];   // [d][t]
   __shared__ __align__(16) float kT[kDK * kLdT];
   __shared__ float Ps[kW * kPs];
+  __shared__ float wks[kW];
   __shared__ double Fs[kW], lis[kW], mts[kW];
   __shared__ double stat[2][kThreads];
   __shared__ double m_in, m_nx;
@@ -210,9 +220,11 @@ mlstm_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (c == nC - 1) m_out[bh] = static_cast<float>(m_next);
   }
   __syncthreads();
-  if (tid < kW)
-    sc.wk[row0 + tid] = tid < Wv ? static_cast<float>(exp(
+  if (tid < kW) {
+    wks[tid] = tid < Wv ? static_cast<float>(exp(
         ((Fs[Wv - 1] - Fs[tid]) + lis[tid]) - m_nx)) : 0.f;
+    sc.wk[row0 + tid] = wks[tid];
+  }
   // ---- row stabilisers and weights
   if (tid < kW) {
     double mt = 0.0, w = 0.0;
@@ -230,8 +242,13 @@ mlstm_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // ---- scores q k^T over the head dim in 32-wide slices; each thread a
-  // 4 x 4 tile (rows 4 tr.., columns 4 tc..), each slice summed apart
+  // 4 x 4 tile (rows 4 tr.., columns 4 tc..), each slice summed apart.
+  // With each slice of k also n's increment sum_s k_s wk_s: eight lanes a
+  // head dim, eight rows each (fp32 products, as the walk's update
+  // multiplies, summed in fp64)
   const int tr = tid >> 4, tc = tid & 15;
+  const int nd = tid >> 3, np = tid & 7;
+  double* nkg = sc.nk + (bh * nC + c) * hd;
   const float* qb = q + (bh * S + t0) * hd;
   const float* kb = k + (bh * S + t0) * hd;
   double sacc[4][4];                   // the slices' sums, added in fp64
@@ -270,6 +287,18 @@ mlstm_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     if (d0 + kDK < hd) load_slice(d0 + kDK);
+    {
+      double x = 0.0;
+#pragma unroll
+      for (int j = 0; j < kW / 8; ++j) {
+        const int s = 8 * j + np;
+        x += static_cast<double>(kT[nd * kLdT + s] * wks[s]);
+      }
+      x += __shfl_xor_sync(kFull, x, 1);
+      x += __shfl_xor_sync(kFull, x, 2);
+      x += __shfl_xor_sync(kFull, x, 4);
+      if (np == 0) nkg[d0 + nd] = x;
+    }
     float sp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -478,8 +507,8 @@ __device__ __forceinline__ void qc_quarter(float (&run)[2][4][4],
 //      head dims quarter w >> 1, and leaves its partial sums in shared
 //      memory;
 //   3. dC^T = v^T (k wk) for the warp's 32-dim blocks of C (w, w + 8, ..),
-//      then C^T = carry C^T + dC^T in fp32 and n = carry n + sum_s k wk in
-//      fp64;
+//      then C^T = carry C^T + dC^T in fp32; n = carry n + the prep's
+//      increment in fp64;
 //      Y = P v (rows 16 (w & 3).., columns 16 (w >> 2)..) and the output
 //      h = (Y + w X) / max(|rs + w q.n|, e^{-m_t}), the four quarters
 //      summed in order.
@@ -616,18 +645,26 @@ mlstm_walk_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // ---- 3a. C^T = carry C^T + v^T (k wk), n = carry n + sum_s k wk
+    // (n's increment from the prep, loaded before the products and added
+    // after them)
+    double nkr[kMaxHd / kThreads];
+    {
+      const double* nk = sc.nk + (bh * nC + c) * hd;
+#pragma unroll
+      for (int e = 0; e < kMaxHd / kThreads; ++e) {
+        const int d = tid + e * kThreads;
+        nkr[e] = d < hd ? __ldg(nk + d) : 0.0;
+      }
+    }
     for (int nb = warp; nb < hd / 32; nb += kWarps) {
       const int d0 = nb * 32;
       float acc[2][4][4];
-      double nsum[4];
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        nsum[n] = 0.0;
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-      }
 #pragma unroll
       for (int ks = 0; ks < kW / 8; ++ks) {
         const int s0 = 8 * ks + t, s1 = s0 + 4;
@@ -638,8 +675,6 @@ mlstm_walk_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int d = d0 + 8 * n + g;
           const float x0 = s0 < Wv ? kb[static_cast<long long>(s0) * hd + d] * w0 : 0.f;
           const float x1 = s1 < Wv ? kb[static_cast<long long>(s1) * hd + d] * w1 : 0.f;
-          nsum[n] += static_cast<double>(x0);
-          nsum[n] += static_cast<double>(x1);
           split(x0, bb[n][0], bs[n][0]);
           split(x1, bb[n][1], bs[n][1]);
         }
@@ -683,16 +718,11 @@ mlstm_walk_kernel(const float* __restrict__ q, const float* __restrict__ k,
           *p0 = c0;
           *p1 = c1;
         }
+    }
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        double x = nsum[n];
-        x += __shfl_xor_sync(kFull, x, 1);
-        x += __shfl_xor_sync(kFull, x, 2);
-        if (t == 0) {
-          const int d = d0 + 8 * n + g;
-          ns[d] = fma(static_cast<double>(carry), ns[d], x);
-        }
-      }
+    for (int e = 0; e < kMaxHd / kThreads; ++e) {
+      const int d = tid + e * kThreads;
+      if (d < hd) ns[d] = fma(static_cast<double>(carry), ns[d], nkr[e]);
     }
 
     // ---- 3b. Y = P v and the output rows
@@ -790,12 +820,19 @@ void launch_prep(const void* q, const void* k, const void* log_i,
 
 }  // namespace
 
-// Floats of scratch that repro_mlstm_prep and repro_mlstm_scan need for
-// BH heads of S rows: per head and chunk of 64 rows, P (64 x 64), four
-// per-row arrays (w, m_t, row sums, wk) and two per-chunk values (carry,
-// m entering the chunk), in that order, each array over all heads.
-extern "C" long long repro_mlstm_scratch_floats(int BH, int S) {
-  return scratch_floats(BH, S);
+// The scratch buffer that repro_mlstm_prep and repro_mlstm_scan need for
+// BH heads of S rows of width hd, in floats: out[0] = the chunk width W;
+// out[1 + i] = the offset of array i of nk (doubles: hd per chunk and
+// head), P (W x W per chunk and head), w, m_t, the row sums, wk (W per
+// chunk and head), carry and m entering the chunk (one per chunk and
+// head); out[9] = the buffer's length.  Each array covers all heads,
+// (head, chunk, ...) in row-major order.
+extern "C" void repro_mlstm_scratch_layout(int BH, int S, int hd,
+                                           long long* out) {
+  long long off[kArrays + 1];
+  scratch_offsets(BH, S, hd, off);
+  out[0] = kW;
+  for (int i = 0; i <= kArrays; ++i) out[1 + i] = off[i];
 }
 
 // Dynamic shared memory of one walk block for head dim ``hd``.
@@ -811,10 +848,9 @@ extern "C" int repro_mlstm_prep(const void* q, const void* k,
                                 const void* m0, void* scratch, void* m, int BH,
                                 int S, int hd, void* stream) {
   if (!shape_ok(BH, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  const int nC = (S + kW - 1) / kW;
   launch_prep(q, k, log_i, log_f, m0,
-              scratch_views(static_cast<float*>(scratch), BH, nC), m, BH, S,
-              hd, static_cast<cudaStream_t>(stream));
+              scratch_views(static_cast<float*>(scratch), BH, S, hd), m, BH,
+              S, hd, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -829,7 +865,7 @@ extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
   if (!shape_ok(BH, S, hd)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nC = (S + kW - 1) / kW;
-  const Scratch sc = scratch_views(static_cast<float*>(scratch), BH, nC);
+  const Scratch sc = scratch_views(static_cast<float*>(scratch), BH, S, hd);
   launch_prep(q, k, log_i, log_f, m0, sc, m, BH, S, hd, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

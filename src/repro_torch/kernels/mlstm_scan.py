@@ -46,7 +46,9 @@ launches = 0
 NEG = -1e30
 #: the JAX package's chunk (``MLSTM_CHUNK``)
 CHUNK = 256
-#: the CUDA kernel's chunk (rows per chunk)
+#: the CUDA kernel's chunk (rows per chunk), the plain passes' default; on
+#: the card the views of the scratch take the width the library reports
+#: (``repro_mlstm_scratch_layout``)
 KERNEL_CHUNK = 64
 #: the kernel's limits: each walk block owns BV value columns of C, and
 #: the widest head whose (hd, BV) tile of C fits a block's shared memory
@@ -54,8 +56,10 @@ BV = 32
 MAX_HD = 1024
 
 _SIGNATURES = {
-    "repro_mlstm_scratch_floats": (ctypes.c_longlong,
-                                   [ctypes.c_int, ctypes.c_int]),
+    "repro_mlstm_scratch_layout": (None, [
+        *[ctypes.c_int] * 3,                            # BH S hd
+        ctypes.POINTER(ctypes.c_longlong),              # out[10]
+    ]),
     "repro_mlstm_walk_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
     "repro_mlstm_prep": (ctypes.c_int, [
         *[ctypes.c_void_p] * 7,                         # q k li lf m0 scratch m
@@ -74,12 +78,14 @@ Scan = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 class Prep(NamedTuple):
     """What the first pass hands the walk, for nC chunks of W rows (rows
-    past S hold zeros): per chunk the causal score tile ``P = (q kᵀ) ⊙
-    exp(logD - m_t)`` (B, H, nC, W, W); per row (B, H, nC·W) ``w`` = w_t,
-    ``mt`` = m_t, ``rs`` = the row sums of P, ``wk`` = the chunk-end
+    past S hold zeros): per chunk n's increment ``nk`` = Σ_s k_s wk_s (B,
+    H, nC, hd; float64 on the card) and the causal score tile ``P = (q kᵀ)
+    ⊙ exp(logD - m_t)`` (B, H, nC, W, W); per row (B, H, nC·W) ``w`` =
+    w_t, ``mt`` = m_t, ``rs`` = the row sums of P, ``wk`` = the chunk-end
     weights exp(F_T - F_s + i_s - m'); per chunk (B, H, nC) ``carry`` =
     exp(m + F_T - m') and ``m`` = the m entering the chunk; and ``m_T``
     (B, H), the m after the last chunk."""
+    nk: torch.Tensor
     P: torch.Tensor
     w: torch.Tensor
     mt: torch.Tensor
@@ -188,9 +194,10 @@ def mlstm_prep_plain(q: torch.Tensor, k: torch.Tensor, log_i: torch.Tensor,
     P = torch.where(mask, scores * torch.exp(logD - m_t[..., None]), 0.0)
     wk = torch.where(valid, torch.exp(inc - m_next[..., None]), 0.0)
     carry = torch.exp(m_in + Ft - m_next)
+    nk = (kp * wk[..., None]).sum(dim=-2)                 # (B,H,nC,hd)
     flat = lambda t: t.reshape(B, H, nC * W)
-    return Prep(P, flat(w), flat(m_t), flat(P.sum(dim=-1)), flat(wk), carry,
-                m_in, m_all[..., -1])
+    return Prep(nk, P, flat(w), flat(m_t), flat(P.sum(dim=-1)), flat(wk),
+                carry, m_in, m_all[..., -1])
 
 
 def mlstm_walk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -217,7 +224,7 @@ def mlstm_walk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         carry = prep.carry[..., c]
         kw = kc * prep.wk[:, :, rows, None]
         C = carry[..., None, None] * C + kw.transpose(-1, -2) @ vc
-        n = carry[..., None] * n + kw.sum(dim=-2)
+        n = carry[..., None] * n + prep.nk[:, :, c].to(dt)
     return torch.cat(hs, dim=2), C, n
 
 
@@ -250,23 +257,32 @@ def _check(shape: Tuple[int, ...], **tensors: torch.Tensor) -> None:
              f"hd must be a multiple of {BV} in {BV}..{MAX_HD}, got {hd}")
 
 
+def scratch_layout(lib: ctypes.CDLL, BH: int, S: int,
+                   hd: int) -> Tuple[int, Tuple[int, ...]]:
+    """The kernel's chunk width and its scratch buffer's offsets in floats
+    (the arrays of :class:`Prep` from ``nk`` to ``m``, then the length), as
+    the library reports them."""
+    out = (ctypes.c_longlong * 10)()
+    lib.repro_mlstm_scratch_layout(BH, S, hd, out)
+    return out[0], tuple(out[1:])
+
+
 def _scratch(lib: ctypes.CDLL, q: torch.Tensor) -> torch.Tensor:
-    B, H, S, _ = q.shape
-    return torch.empty(lib.repro_mlstm_scratch_floats(B * H, S),
-                       dtype=torch.float32, device=q.device)
+    B, H, S, hd = q.shape
+    _, offsets = scratch_layout(lib, B * H, S, hd)
+    return torch.empty(offsets[-1], dtype=torch.float32, device=q.device)
 
 
-def _prep_views(buf: torch.Tensor, B: int, H: int, S: int,
+def _prep_views(lib: ctypes.CDLL, buf: torch.Tensor, q: torch.Tensor,
                 m_T: torch.Tensor) -> Prep:
-    """The scratch buffer's layout (``repro_mlstm_scratch_floats``) as a
-    :class:`Prep`."""
-    W = KERNEL_CHUNK
+    """The scratch buffer as a :class:`Prep`, by the library's layout."""
+    B, H, S, hd = q.shape
+    W, off = scratch_layout(lib, B * H, S, hd)
     nC = -(-S // W)
-    R = B * H * nC * W
-    sizes = [R * W, R, R, R, R, B * H * nC, B * H * nC]
-    P, w, mt, rs, wk, carry, m = torch.split(buf[:sum(sizes)], sizes)
+    nk, P, w, mt, rs, wk, carry, m = (buf[a:b] for a, b in zip(off, off[1:]))
     rows = lambda t: t.view(B, H, nC * W)
-    return Prep(P.view(B, H, nC, W, W), rows(w), rows(mt), rows(rs), rows(wk),
+    return Prep(nk.view(torch.float64).view(B, H, nC, hd),
+                P.view(B, H, nC, W, W), rows(w), rows(mt), rows(rs), rows(wk),
                 carry.view(B, H, nC), m.view(B, H, nC), m_T)
 
 
@@ -285,7 +301,7 @@ def mlstm_prep_cuda(q: torch.Tensor, k: torch.Tensor, log_i: torch.Tensor,
         q.data_ptr(), k.data_ptr(), log_i.data_ptr(), log_f.data_ptr(),
         m0.data_ptr(), buf.data_ptr(), m_T.data_ptr(), B * H, S, hd, stream)
     build.check(rc, "mlstm_prep")
-    return _prep_views(buf, B, H, S, m_T)
+    return _prep_views(lib, buf, q, m_T)
 
 
 def mlstm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

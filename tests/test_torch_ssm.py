@@ -239,6 +239,7 @@ def test_prep_and_walk_compose_to_the_scan(case):
     W = KERNEL_CHUNK
     nC = -(-S // W)
     assert prep.P.shape == (B, H, nC, W, W)
+    assert prep.nk.shape == (B, H, nC, hd)
     assert prep.carry.shape == prep.m.shape == (B, H, nC)
     assert torch.equal(prep.m[..., 0], m0)
     assert not prep.P.triu(diagonal=1).any()
