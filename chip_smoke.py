@@ -11,7 +11,16 @@ Phases, each printed as one JSON object per line:
    kernels/csrc`` (one ``nvcc`` per source, all at once);
 3. paged_decode_attention — the kernel at granite-8b widths (M=8, H=32,
    Hk=8, hd=128, page 32) over ragged lengths with poisoned stale pages,
-   fp32 and int8, against ``paged_attention_plain`` on the card;
+   fp32 and int8, against ``paged_attention_plain`` on the card (1e-4),
+   and over ``PAGED_CASES``: lengths either side of the split pass's
+   4-page splits, one slot at 8191 beside empty ones, a block table far
+   wider than any length with its padding on poisoned pages,
+   qwen2-moe-a2.7b's H=16, Hk=16, and every slot at 8191; two launches
+   must agree to the bit; timed with cold L2 at today's shape, qwen2-moe's
+   and all-8191, each beside its bytes bound, today's shape also with a
+   clean cold L2 and with every length 0 (the floor); the split pass's
+   shared memory and resident blocks, and both passes' ptxas registers and
+   spills;
 4. flash_attention — the kernel at hd=128 over ``FLASH_CASES`` (B=1, H=32,
    S=2048 causal, window 128, 17, a ragged S=2050, non-causal; ragged 97
    with B=2; window 1; the serving layout's repeated k/v; q x 8), fp32
@@ -137,15 +146,18 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3, flush=None,
+            flush_by_read: bool = False) -> float:
     """Median CUDA-event time of ``fn`` in ms; with ``flush``, a buffer
-    larger than L2 is rewritten before each launch (cold caches)."""
+    larger than L2 is rewritten before each launch (cold caches, L2 full of
+    dirty lines that ``fn``'s reads write back), or with ``flush_by_read``
+    read instead (cold and clean)."""
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
         if flush is not None:
-            flush.zero_()
+            flush.sum() if flush_by_read else flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -158,30 +170,36 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
 
 # --------------------------------------------------------------- kernels
 
-def paged_phase(torch, flush):
+def paged_inputs(torch, lengths, H, Hk, page=32, hd=128, width=None,
+                 spare=16, seed=0):
+    """A pool on the card with ragged lengths: every row a slot does not
+    own below its length is poisoned (large and finite), and ``spare``
+    pages no slot owns.  The block table is ``width`` pages wide (default:
+    the widest slot's), and its padding is page 0, or with ``width`` the
+    poisoned spare pages.  Returns the fp32 and int8 argument tuples."""
     import numpy as np
 
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.serving.batch import _quant_page_int8
 
     dev = torch.device("cuda")
-    M, H, Hk, hd, page = 8, 32, 8, 128, 32
-    lengths = PAGED_LENGTHS
+    M = len(lengths)
     # the engine allocates the current token's page before the step
     owned = [-(-(L + 1) // page) for L in lengths]
-    NP = max(owned)
-    P = sum(owned) + 16                           # 16 pages no slot owns
-    rng = np.random.default_rng(0)
+    NP = width or max(owned)
+    P = sum(owned) + spare
+    rng = np.random.default_rng(seed)
     perm = rng.permutation(P)
     bt = np.zeros((M, NP), np.int32)
     live = np.zeros((P, page), bool)
     at = 0
     for m, (L, n) in enumerate(zip(lengths, owned)):
         bt[m, :n] = perm[at:at + n]
+        if width:
+            bt[m, n:] = perm[sum(owned):][np.arange(NP - n) % spare]
         at += n
         for t in range(L):
             live[bt[m, t // page], t % page] = True
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device=dev).manual_seed(seed)
     kp = torch.randn((P, page, Hk, hd), generator=g, device=dev)
     vp = torch.randn((P, page, Hk, hd), generator=g, device=dev)
     stale = torch.from_numpy(~live).to(dev)
@@ -194,27 +212,103 @@ def paged_phase(torch, flush):
     len_t = torch.tensor(lengths, dtype=torch.int32, device=dev)
     kq, ks = _quant_page_int8(kp)
     vq, vs = _quant_page_int8(vp)
-    fp32 = (q, kp, vp, bt_t, len_t, kn, vn)
-    int8 = (q, kq, vq, bt_t, len_t, kn, vn, ks, vs)
+    return ((q, kp, vp, bt_t, len_t, kn, vn),
+            (q, kq, vq, bt_t, len_t, kn, vn, ks, vs))
 
+
+def paged_bound_ms(lengths, H, Hk, hd=128, page=32, itemsize=4,
+                   scales=False) -> float:
+    """Least time of one call: each live K/V row, each live page's scales
+    and block-table entry, q, out, k/v_new and lengths moved once."""
+    M = len(lengths)
+    pages_read = sum(-(-L // page) for L in lengths)
+    fixed = (2 * M * H * hd + 2 * M * Hk * hd) * 4 + M * 4 + pages_read * 4
+    kv = sum(lengths) * Hk * hd * 2 * itemsize
+    sc = pages_read * Hk * 4 * 2 if scales else 0
+    return (kv + sc + fixed) / HBM_BYTES_PER_S * 1e3
+
+
+#: the split pass's edges (name: H, Hk, lengths, table width), held against
+#: the plain version like today's shape: lengths either side of the 4-page
+#: (128-row) splits granite-8b's decode plans, one slot at 8191 beside
+#: empty ones, a table far wider than any length whose padding points at
+#: poisoned pages, qwen2-moe-a2.7b's heads, and every slot at 8191
+PAGED_CASES = {
+    "split_edges": (32, 8, [127, 128, 129, 255, 256, 257, 0, 1], None),
+    "long_8191": (32, 8, [8191, 0, 0, 0, 0, 0, 0, 0], None),
+    "wide_table": (32, 8, [0, 5, 40, 100, 31, 64, 1, 33], 256),
+    "qwen_heads": (16, 16, PAGED_LENGTHS, None),
+    "all_8191": (32, 8, [8191] * 8, None),
+}
+#: cases timed beside today's shape, each in fp32 and int8
+PAGED_TIMED = ("qwen_heads", "all_8191")
+
+
+def paged_check(torch, pa, name, fp32, int8) -> dict:
+    """max |kernel - plain| in fp32 and int8; finite outputs."""
     err = {}
-    for name, args in (("fp32", fp32), ("int8", int8)):
+    for kind, args in (("fp32", fp32), ("int8", int8)):
         got = pa.paged_attention_cuda(*args)
         want = pa.paged_attention_plain(*args)
         torch.cuda.synchronize()
-        require(bool(torch.isfinite(got).all()), f"paged {name}: non-finite")
-        err[name] = (got - want).abs().max().item()
-    # tolerance: fp32 sums over up to ~2k keys in another order
+        require(bool(torch.isfinite(got).all()),
+                f"paged {name} {kind}: non-finite")
+        err[kind] = (got - want).abs().max().item()
+    return err
+
+
+def paged_ptxas(log: str) -> dict:
+    """ptxas's report of each paged kernel instantiation."""
+    def key_of(name):
+        m = re.search(r"paged_(split|merge)_kernelI(?:([fa])Li(\d+)ELi(\d+)E"
+                      r"|Li(\d+)ELi(\d+)E)", name)
+        if m is None:
+            return None
+        if m.group(1) == "split":
+            kind = "fp32" if m.group(2) == "f" else "int8"
+            return f"split_{kind}_hd{m.group(3)}_rep{m.group(4)}"
+        return f"merge_hd{m.group(5)}_rep{m.group(6)}"
+    return ptxas_report(log, key_of)
+
+
+def paged_phase(torch, flush, build_log: str = ""):
+    from repro_torch.kernels import paged_attention as pa
+
+    M, H, Hk, hd, page = 8, 32, 8, 128, 32
+    lengths = PAGED_LENGTHS
+    fp32, int8 = paged_inputs(torch, lengths, H, Hk)
+    err = paged_check(torch, pa, "today", fp32, int8)
+    # tolerance: fp32 sums over up to ~8k keys in another order
     require(max(err.values()) <= 1e-4, f"paged kernel disagrees: {err}")
+    cases = {}
+    for name, (h, hk, lens, width) in PAGED_CASES.items():
+        c32, c8 = paged_inputs(torch, lens, h, hk, width=width)
+        e = paged_check(torch, pa, name, c32, c8)
+        require(max(e.values()) <= 1e-4, f"paged {name} disagrees: {e}")
+        cases[name] = {"H": h, "Hk": hk, "lengths": lens, "table_width":
+                       c32[3].shape[1], "pages_per_split": pa.split_pages(
+                           c32[3].shape[1], page, len(lens), hk),
+                       "max_abs_err": e}
+        if name in PAGED_TIMED:
+            cases[name].update(
+                kernel_ms=time_ms(torch, lambda: pa.paged_attention_cuda(*c32),
+                                  flush=flush),
+                kernel_int8_ms=time_ms(
+                    torch, lambda: pa.paged_attention_cuda(*c8), flush=flush),
+                bound_ms=paged_bound_ms(lens, h, hk),
+                bound_int8_ms=paged_bound_ms(lens, h, hk, itemsize=1,
+                                             scales=True))
+        del c32, c8
+    # no atomics: a second launch on the same inputs is equal to the bit
+    repeat = {}
+    for kind, args in (("fp32", fp32), ("int8", int8)):
+        a = pa.paged_attention_cuda(*args)
+        b = pa.paged_attention_cuda(*args)
+        torch.cuda.synchronize()
+        repeat[kind] = bool(torch.equal(a, b))
+    require(all(repeat.values()), f"paged kernel not bit-repeatable: {repeat}")
 
-    pages_read = sum(-(-L // page) for L in lengths)
-    fixed = (2 * M * H * hd + 2 * M * Hk * hd) * 4 + M * 4 + pages_read * 4
-
-    def bound(itemsize: int, scales: bool) -> float:
-        kv = sum(lengths) * Hk * hd * 2 * itemsize
-        sc = pages_read * Hk * 4 * 2 if scales else 0
-        return (kv + sc + fixed) / HBM_BYTES_PER_S * 1e3
-
+    empty = (*fp32[:4], torch.zeros_like(fp32[4]), *fp32[5:])
     res = {
         "max_abs_err": err,
         "kernel_ms": time_ms(torch, lambda: pa.paged_attention_cuda(*fp32),
@@ -223,13 +317,28 @@ def paged_phase(torch, flush):
                                   flush=flush),
         "plain_ms": time_ms(torch, lambda: pa.paged_attention_plain(*fp32),
                             iters=5, flush=flush),
-        "bound_ms": bound(4, False),
-        "bound_int8_ms": bound(1, True),
+        # the same launch with L2 evicted by a read: no dirty lines to write
+        # back, as in a decode step, where L2 holds mostly weights
+        "kernel_clean_l2_ms": time_ms(
+            torch, lambda: pa.paged_attention_cuda(*fp32), flush=flush,
+            flush_by_read=True),
+        # both passes over the same table with every length 0: launches,
+        # empty splits and the merge, with no cached row
+        "floor_ms": time_ms(torch, lambda: pa.paged_attention_cuda(*empty),
+                            flush=flush),
+        "bound_ms": paged_bound_ms(lengths, H, Hk),
+        "bound_int8_ms": paged_bound_ms(lengths, H, Hk, itemsize=1,
+                                        scales=True),
         # no single PyTorch call computes attention through a block table
         "library_ms": None,
     }
     emit({"phase": "paged_decode_attention", "M": M, "H": H, "Hk": Hk,
-          "hd": hd, "page": page, "lengths": lengths, **res})
+          "hd": hd, "page": page, "lengths": lengths,
+          "pages_per_split": pa.split_pages(fp32[3].shape[1], page, M, Hk),
+          **res, "bit_repeat": repeat, "cases": cases,
+          "split_config": {f"{k}_rep{r}": pa.split_config(k == "int8", hd, r)
+                           for k in ("fp32", "int8") for r in (4, 1)},
+          "ptxas": paged_ptxas(build_log)})
     return res
 
 
@@ -1232,7 +1341,7 @@ def main() -> int:
                         or "spill" in ln] for k, v in logs.items()}})
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB
-    paged = paged_phase(torch, flush)
+    paged = paged_phase(torch, flush, logs.get("paged_attention", ""))
     flash = flash_phase(torch, flush, logs.get("flash_attention", ""))
     gating = gating_phase(torch, flush)
     mlstm = mlstm_phase(torch, flush, logs.get("mlstm_scan", ""))

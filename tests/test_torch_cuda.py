@@ -34,18 +34,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def _paged_inputs(lengths, page, hk, rep, hd, device, quant=False, seed=0):
+def _paged_inputs(lengths, page, hk, rep, hd, device, quant=False, seed=0,
+                  width=None):
     """Pool, tables and queries; every pool row a slot does not own below
-    its length is poisoned with a large finite value."""
+    its length is poisoned with a large finite value.  With ``width`` the
+    block table is that many pages wide and its padding points at the
+    poisoned pages no slot owns (else it is 0)."""
     rng = np.random.default_rng(seed)
     owned = [-(-(L + 1) // page) for L in lengths]
     P = sum(owned) + 3
     perm = rng.permutation(P)
-    bt = np.zeros((len(lengths), max(owned)), np.int32)
+    spare = perm[sum(owned):]                       # pages no slot owns
+    bt = np.zeros((len(lengths), width or max(owned)), np.int32)
     live = np.zeros((P, page), bool)
     at = 0
     for m, (L, n) in enumerate(zip(lengths, owned)):
         bt[m, :n] = perm[at:at + n]
+        if width:
+            bt[m, n:] = spare[np.arange(width - n) % len(spare)]
         at += n
         for t in range(L):
             live[bt[m, t // page], t % page] = True
@@ -206,6 +212,48 @@ def test_paged_cuda_matches_plain(cuda, quant, hk, rep, hd):
     want = paged_attention_plain(*args)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+#: the smoke's edge cases (hk, rep, lengths, table width) at hd 128, page 32:
+#: lengths either side of the 4-page (128-row) splits granite-8b's decode
+#: plans, one slot at 8191 beside empty ones, a table far wider than any
+#: length with its padding on poisoned pages, and qwen2-moe-a2.7b's heads
+PAGED_EDGES = {
+    "split_edges": (8, 4, [127, 128, 129, 255, 256, 257, 0, 1], None),
+    "long_8191": (8, 4, [8191, 0, 0, 0, 0, 0, 0, 0], None),
+    "wide_table": (8, 4, [0, 5, 40, 100, 31, 64, 1, 33], 256),
+    "qwen_heads": (16, 1, [0, 31, 32, 33, 100, 2047, 2048, 2069], None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(PAGED_EDGES))
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_paged_cuda_split_edges(cuda, quant, case):
+    """The split pass's edges against the plain version: 1e-4, as
+    ``test_paged_cuda_matches_plain``; both passes count one launch."""
+    hk, rep, lengths, width = PAGED_EDGES[case]
+    args = _paged_inputs(lengths, 32, hk, rep, 128, cuda, quant, width=width)
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(*args)
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    want = paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("hk,rep", [(8, 4), (16, 1)])
+def test_paged_cuda_is_bit_repeatable(cuda, quant, hk, rep):
+    """No atomics: two launches on the same inputs agree to the bit."""
+    args = _paged_inputs([0, 31, 32, 33, 100, 2047, 2048, 2069], 32, hk, rep,
+                         128, cuda, quant)
+    a = paged_attention_cuda(*args)
+    b = paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
