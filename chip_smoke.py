@@ -15,8 +15,9 @@ Phases, each printed as one JSON object per line:
    and over ``PAGED_CASES``: lengths either side of the split pass's
    4-page splits, one slot at 8191 beside empty ones, a block table far
    wider than any length with its padding on poisoned pages,
-   qwen2-moe-a2.7b's H=16, Hk=16, and every slot at 8191; two launches
-   must agree to the bit; timed with cold L2 at today's shape, qwen2-moe's
+   qwen2-moe-a2.7b's H=16, Hk=16, every slot at 8191, and one session at
+   8191 alone or beside one at 33 (64 splits, past the merge pass's 32 at
+   once); two launches must agree to the bit, also at 64 splits; timed with cold L2 at today's shape, qwen2-moe's
    and all-8191, each beside its bytes bound, today's shape also with a
    clean cold L2 and with every length 0 (the floor); the split pass's
    shared memory and resident blocks, and both passes' ptxas registers and
@@ -28,15 +29,30 @@ Phases, each printed as one JSON object per line:
    (H=32) and qwen2-moe-a2.7b's (H=16) causal prefill of 2048 tokens,
    with ``scaled_dot_product_attention`` beside it as a yardstick only,
    and the kernel's ptxas registers, spills and shared memory;
-5. moe_gating — the router-gating kernel at T in {1, 8, 2048, 2050} and
-   (E, K) in {(60, 4), (16, 4), (64, 8)}, plus duplicated logit columns
-   (ties), against ``moe_gating_plain``: ids exactly, weights and
-   probabilities within 1e-6; timed at T=8 (a decode step) and T=2048 (a
-   prompt) for qwen2-moe-a2.7b's E=60, K=4;
-6. small_parity — a reduced granite-8b (fp32 and int8 pools) and a
-   reduced qwen2-moe-a2.7b with its 60 experts, top-4, served on the card
-   and on the CPU (plain versions) with the same weights: logits must
-   agree and only the card's run launches the kernels;
+5. moe_gating — the logits-in gating kernel (off the main path since the
+   router product was folded in) at T in {1, 8, 2048, 2050} and (E, K) in
+   {(60, 4), (16, 4), (64, 8)}, plus duplicated logit columns (ties),
+   against ``moe_gating_plain``: ids exactly, weights and probabilities
+   within 1e-6; timed at T=8 (a decode step) and T=2048 (a prompt) for
+   qwen2-moe-a2.7b's E=60, K=4;
+   router_gating — the router product + gating kernel of the main path at
+   T in {1, 8, 2048, 2050} and (D, E, K) in {(2048, 60, 4), (2048, 16, 4),
+   (1024, 64, 8), (64, 60, 4)}, x ~ N(0, 1) and the router ~ N(0, (2 /
+   sqrt(D))^2), one case at the init's 0.02 scale, constructed ties
+   (twin router columns, a zero row of x) and cluster sizes 4, 8 and 16,
+   against ``router_gating_plain``: ids equal in every row whose plain
+   K-th and (K+1)-th probabilities differ by more than TIE_GAP (in every
+   row for the constructed ties; the others are counted), weights within
+   1e-6 on rows whose ids agree, probabilities within 1e-6, two launches
+   equal to the bit; timed with a cold L2, by a rewrite and by a read, at
+   T=8 and T=2048 for qwen2-moe-a2.7b's D=2048, E=60, K=4 beside the old
+   pair (cuBLAS product, then the logits-in kernel), an empty kernel of the
+   same launch shape, the plain version and the four-call yardstick;
+6. small_parity — a reduced granite-8b and a reduced qwen2-moe-a2.7b with
+   its 60 experts, top-4, each with fp32 (1e-4) and int8 (1e-2) pools,
+   served on the card and on the CPU (plain versions) with the same
+   weights: logits must agree and only the card's run launches the
+   kernels;
 7. serving  — granite-8b at full width and full depth in fp32 with
    seeded random weights: a ``BatchEngine`` admits 8
    sessions (two 2048-token prompts through the flash kernel, six short
@@ -47,9 +63,11 @@ Phases, each printed as one JSON object per line:
    are profiled;
 8. serving_moe — granite-8b released, then qwen2-moe-a2.7b at full width
    and depth in fp32 (14.3 B parameters) served the same way, every
-   layer's router gating through the gating kernel: launch counts, page
-   accounting, timings, peak memory, the per-slot replay within 1e-3,
-   and a profile of a few steps;
+   layer's router product and gating through the router kernel: launch
+   counts, page accounting, timings, peak memory, the per-slot replay
+   within 1e-3, the int8 replay traced to where its routing first parts
+   from the fp32 run's (reported, not bounded), and a profile of a few
+   steps with the router product's and the gating's device time;
 9. serving_xlstm — qwen2-moe-a2.7b released, then xlstm-1.3b at full width
    and depth in fp32 (5.64 B parameters) served per slot, every prefill's
    mLSTM layers through the mLSTM kernel, under gate G3; then the state
@@ -232,16 +250,22 @@ def paged_bound_ms(lengths, H, Hk, hd=128, page=32, itemsize=4,
 #: the plain version like today's shape: lengths either side of the 4-page
 #: (128-row) splits granite-8b's decode plans, one slot at 8191 beside
 #: empty ones, a table far wider than any length whose padding points at
-#: poisoned pages, qwen2-moe-a2.7b's heads, and every slot at 8191
+#: poisoned pages, qwen2-moe-a2.7b's heads, every slot at 8191, and one
+#: long session decoding alone or beside a short one (64 splits, past the
+#: 32 the merge pass reads at once)
 PAGED_CASES = {
     "split_edges": (32, 8, [127, 128, 129, 255, 256, 257, 0, 1], None),
     "long_8191": (32, 8, [8191, 0, 0, 0, 0, 0, 0, 0], None),
     "wide_table": (32, 8, [0, 5, 40, 100, 31, 64, 1, 33], 256),
     "qwen_heads": (16, 16, PAGED_LENGTHS, None),
     "all_8191": (32, 8, [8191] * 8, None),
+    "alone_8191": (32, 8, [8191], None),
+    "pair_8191_33": (32, 8, [8191, 33], None),
 }
 #: cases timed beside today's shape, each in fp32 and int8
 PAGED_TIMED = ("qwen_heads", "all_8191")
+#: cases whose two launches must also agree to the bit
+PAGED_REPEAT = ("alone_8191",)
 
 
 def paged_check(torch, pa, name, fp32, int8) -> dict:
@@ -255,6 +279,18 @@ def paged_check(torch, pa, name, fp32, int8) -> dict:
                 f"paged {name} {kind}: non-finite")
         err[kind] = (got - want).abs().max().item()
     return err
+
+
+def paged_repeat(torch, pa, fp32, int8) -> dict:
+    """No atomics: a second launch on the same inputs is equal to the bit,
+    in fp32 and int8."""
+    repeat = {}
+    for kind, args in (("fp32", fp32), ("int8", int8)):
+        a = pa.paged_attention_cuda(*args)
+        b = pa.paged_attention_cuda(*args)
+        torch.cuda.synchronize()
+        repeat[kind] = bool(torch.equal(a, b))
+    return repeat
 
 
 def paged_ptxas(log: str) -> dict:
@@ -285,10 +321,15 @@ def paged_phase(torch, flush, build_log: str = ""):
         c32, c8 = paged_inputs(torch, lens, h, hk, width=width)
         e = paged_check(torch, pa, name, c32, c8)
         require(max(e.values()) <= 1e-4, f"paged {name} disagrees: {e}")
-        cases[name] = {"H": h, "Hk": hk, "lengths": lens, "table_width":
-                       c32[3].shape[1], "pages_per_split": pa.split_pages(
-                           c32[3].shape[1], page, len(lens), hk),
+        NP = c32[3].shape[1]
+        pps = pa.split_pages(NP, page, len(lens), hk)
+        cases[name] = {"H": h, "Hk": hk, "lengths": lens, "table_width": NP,
+                       "pages_per_split": pps, "splits": -(-NP // pps),
                        "max_abs_err": e}
+        if name in PAGED_REPEAT:
+            cases[name]["bit_repeat"] = paged_repeat(torch, pa, c32, c8)
+            require(all(cases[name]["bit_repeat"].values()),
+                    f"paged {name} not bit-repeatable")
         if name in PAGED_TIMED:
             cases[name].update(
                 kernel_ms=time_ms(torch, lambda: pa.paged_attention_cuda(*c32),
@@ -299,13 +340,7 @@ def paged_phase(torch, flush, build_log: str = ""):
                 bound_int8_ms=paged_bound_ms(lens, h, hk, itemsize=1,
                                              scales=True))
         del c32, c8
-    # no atomics: a second launch on the same inputs is equal to the bit
-    repeat = {}
-    for kind, args in (("fp32", fp32), ("int8", int8)):
-        a = pa.paged_attention_cuda(*args)
-        b = pa.paged_attention_cuda(*args)
-        torch.cuda.synchronize()
-        repeat[kind] = bool(torch.equal(a, b))
+    repeat = paged_repeat(torch, pa, fp32, int8)
     require(all(repeat.values()), f"paged kernel not bit-repeatable: {repeat}")
 
     empty = (*fp32[:4], torch.zeros_like(fp32[4]), *fp32[5:])
@@ -544,6 +579,158 @@ def gating_phase(torch, flush):
     return res
 
 
+#: the router kernel's cases: (D, E, K) at every T of GATING_T
+ROUTER_DEK = ((2048, 60, 4), (2048, 16, 4), (1024, 64, 8), (64, 60, 4))
+#: the router kernel's cluster sizes, checked and timed at qwen2-moe-a2.7b's
+#: router (D=2048, E=60, K=4) at T=8 and T=2048 beside the plan's own
+ROUTER_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def router_inputs(torch, T, D, E, g, scale=None, ties=False):
+    """x ~ N(0, 1) (T, D) and a router ~ N(0, scale^2) (D, E), by default
+    scale = 2 / sqrt(D), so the logits spread about 2 as the gating cases'
+    own; with ``ties`` the router's columns come in equal pairs and x's row
+    0 is zero, so twin logits are equal and row 0 is uniform."""
+    scale = 2 / D ** 0.5 if scale is None else scale
+    x = torch.randn((T, D), generator=g, device="cuda")
+    if ties:
+        half = torch.randn((D, E // 2), generator=g, device="cuda") * scale
+        router = torch.cat([half, half], dim=1).contiguous()
+        x[0] = 0
+    else:
+        router = torch.randn((D, E), generator=g, device="cuda") * scale
+    return x, router
+
+
+def router_check(torch, got, want, k, ties) -> dict:
+    """The router kernel's bounds against its plain version: ids equal in
+    every row whose plain K-th and (K+1)-th probabilities differ by more
+    than TIE_GAP (every row for constructed ties), weights within 1e-6 on
+    the rows whose ids agree, probabilities within 1e-6 on every row."""
+    w, ids, probs = got
+    wp, ip, pp = want
+    E = pp.shape[1]
+    top = pp.topk(min(k + 1, E), dim=1).values
+    gap = (top[:, k - 1] - top[:, k] if k < E
+           else torch.full_like(top[:, 0], float("inf")))
+    near = gap <= TIE_GAP
+    agree = (ids == ip).all(dim=1)
+    held = torch.ones_like(near) if ties else ~near
+    require(bool(agree[held].all()), "router gating: expert ids differ")
+    res = {"near_ties": int(near.sum()),
+           "near_ties_ids_differ": int((near & ~agree).sum()),
+           "w_err": (w - wp)[agree].abs().max().item() if agree.any() else 0.0,
+           "probs_err": (probs - pp).abs().max().item()}
+    require(res["w_err"] <= 1e-6 and res["probs_err"] <= 1e-6,
+            f"router gating: {res}")
+    return res
+
+
+def router_ptxas(log: str) -> dict:
+    """ptxas's report of the router kernel's instantiations and the empty
+    kernel beside them."""
+    def key_of(name):
+        m = re.search(r"router_gating_kernelILi(\d+)E", name)
+        if m:
+            return f"rows{m.group(1)}"
+        return "empty" if "router_empty_kernel" in name else None
+    return ptxas_report(log, key_of)
+
+
+def router_gating_phase(torch, flush, build_log: str = ""):
+    """The router product + gating kernel against its plain version at
+    every T of GATING_T and (D, E, K) of ROUTER_DEK, with the init's 0.02
+    scale, constructed ties and every cluster size; two launches bit-equal;
+    cold-L2 times at T=8 and T=2048 (by a rewrite and by a read) beside the
+    old pair (cuBLAS product, then the logits-in kernel), the empty kernel
+    at the same launch shape, the plain version, the four-call yardstick
+    and the bound."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moe_gating as mg
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(T, D, E, K, None, False, None) for T in GATING_T
+             for D, E, K in ROUTER_DEK]
+    cases += [(2048, 2048, 60, 4, 0.02, False, None)]
+    cases += [(T, 2048, 60, 4, None, True, None) for T in (8, 2050)]
+    cases += [(T, 2048, 60, 4, None, False, c) for T in (8, 2048)
+              for c in ROUTER_CLUSTERS]
+    checks = {}
+    for T, D, E, K, scale, ties, c in cases:
+        x, router = router_inputs(torch, T, D, E, g, scale, ties)
+        got = mg.router_gating_cuda(x, router, K, c)
+        again = mg.router_gating_cuda(x, router, K, c)
+        want = mg.router_gating_plain(x, router, K)
+        torch.cuda.synchronize()
+        key = (f"T{T}_D{D}_E{E}_K{K}" + (f"_scale{scale}" if scale else "")
+               + ("_ties" if ties else "")
+               + f"_C{mg.router_plan(T, D, c)[0]}")
+        res = router_check(torch, got, want, K, ties)
+        res["bit_repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        require(res["bit_repeat"], f"router gating {key}: not bit-repeatable")
+        checks[key] = res
+
+    lib = build.load("moe_gating", mg._SIGNATURES)
+    D, E, K = 2048, 60, 4
+
+    def four_calls(x, router):
+        # product, softmax, topk, divide: the same function but for the tie
+        # order (torch.topk does not promise the lowest index first)
+        p = torch.softmax(x @ router, dim=-1)
+        v, i = torch.topk(p, K, dim=-1)
+        return v / torch.clamp_min(v.sum(-1, keepdim=True), 1e-9), i, p
+
+    def cold(fn, iters=50):
+        return {"rewrite": time_ms(torch, fn, iters=iters, flush=flush),
+                "read": time_ms(torch, fn, iters=iters, flush=flush,
+                                flush_by_read=True)}
+
+    res = {"cases": checks,
+           "max_abs_err": max(max(v["w_err"], v["probs_err"])
+                              for v in checks.values())}
+    for T in (8, 2048):
+        x, router = router_inputs(torch, T, D, E, g)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def empty(c):
+            plan = mg.router_plan(T, D, c)
+
+            def run():
+                require(lib.repro_router_gating_empty(T, D, *plan, stream)
+                        == 0, "empty router launch failed")
+            return run
+
+        nbytes = (T * D + D * E) * 4 + T * (E * 4 + K * 8)
+        ops = 2 * T * D * E + T * E * (5 + 2 * K)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_SIMT_FLOPS
+        res[f"T{T}"] = {
+            "kernel_ms": cold(lambda: mg.router_gating_cuda(x, router, K)),
+            "by_cluster": {str(c): {
+                "kernel_ms": cold(lambda: mg.router_gating_cuda(x, router, K,
+                                                                c)),
+                "empty_ms": cold(empty(c))} for c in ROUTER_CLUSTERS},
+            "old_pair_ms": cold(lambda: mg.moe_gating_cuda(x @ router, K)),
+            "empty_ms": cold(empty(None)),
+            "plain_ms": time_ms(torch, lambda: mg.router_gating_plain(
+                x, router, K), iters=20, flush=flush),
+            "four_calls_ms": cold(lambda: four_calls(x, router)),
+            "plan": dict(zip(("cluster", "chunk", "rows"),
+                             mg.router_plan(T, D))),
+            "bytes": nbytes, "ops": ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+    smem = lib.repro_router_gating_smem_bytes
+    res["dynamic_smem_bytes"] = {f"rows{rows}": smem(rows) for rows in
+                                 (mg.ROWS_SHORT, mg.ROWS_LONG)}
+    res["ptxas"] = router_ptxas(build_log)
+    # no single PyTorch call computes the product, softmax, ordered top-k
+    # and renormalisation
+    res["library_ms"] = None
+    emit({"phase": "router_gating", "D": D, "E": E, "K": K, **res})
+    return res
+
+
 def mlstm_inputs(torch, B, H, S, hd, state, g):
     """The JAX kernel test's distributions, on the card: q, k (pre-scaled
     by 1/sqrt(hd)), v, log i ~ N(0,1), log f = log_sigmoid(N(0,1) + 2);
@@ -730,18 +917,18 @@ def recording_gating():
     run goes on).  The counted kernel wrapper still does the work."""
     from repro_torch.kernels import ops
 
-    real, rec = ops.moe_gating, []
+    real, rec = ops.router_gating, []
 
-    def record(logits, k):
-        out = real(logits, k)
+    def record(x, router, k):
+        out = real(x, router, k)
         rec.append((out[1], out[2]))
         return out
 
-    ops.moe_gating = record
+    ops.router_gating = record
     try:
         yield rec
     finally:
-        ops.moe_gating = real
+        ops.router_gating = real
 
 
 def _gating_by_call(rec, rows, L, steps, per_slot):
@@ -816,6 +1003,62 @@ def routing_ties(rec_a, rec_b, rows, L, steps, k, b_per_slot=False):
     return reach
 
 
+def int8_trace(rec_a, rec_b, run_a, run_b, rows, L, steps, k):
+    """Where an int8-pool run of a feed parts from the fp32 run (``a``).
+    Prefills are the same dense fp32 pass in both, so the runs first differ
+    in decode step 0, layer 0's attention.  Per session: the first (step,
+    layer) whose expert set differs, the K-th minus (K+1)-th probability
+    there in both runs (a routing flip of a near tie if the fp32 gap is
+    within ``TIE_GAP``), and the largest logit deviation before and from
+    that step on.  Also the largest probability deviation by layer in step
+    0, which is what int8 k/v does to the router before any flip."""
+    import numpy as np
+    import torch
+
+    n = len(rows)
+    a = _gating_by_call(rec_a, rows, L, steps, False)
+    b = _gating_by_call(rec_b, rows, L, steps, False)
+    prefill_same = all(torch.equal(a[key][0], b[key][0]) for key in a
+                       if key[0] == "prefill")
+    first = {}
+    for t in range(steps):
+        for j in range(L):
+            ids_a, probs_a = a[("step", t, j)]
+            ids_b, probs_b = b[("step", t, j)]
+            differ = (ids_a.sort(dim=1).values.cpu()
+                      != ids_b.sort(dim=1).values.cpu()).any(dim=1)
+            for r in differ.nonzero()[:, 0].tolist():
+                if r in first:
+                    continue
+                gaps = []
+                for probs in (probs_a[r], probs_b[r]):
+                    top = probs.float().cpu().topk(k + 1).values
+                    gaps.append(float(top[k - 1] - top[k]))
+                first[r] = {"step": t, "layer": j, "fp32_gap": gaps[0],
+                            "int8_gap": gaps[1],
+                            "tie": gaps[0] <= TIE_GAP,
+                            "max_abs_prob_dev": float(
+                                (probs_a[r] - probs_b[r]).abs().max())}
+    dev = np.stack([np.abs(x - y).max(axis=-1)
+                    for x, y in zip(run_a[2], run_b[2])])     # (steps, n)
+    since = [first[s]["step"] if s in first else steps for s in range(n)]
+    before = [float(dev[:since[s], s].max()) for s in range(n) if since[s]]
+    after = [float(dev[since[s]:, s].max()) for s in range(n)
+             if since[s] < steps]
+    return {"prefill_routing_same": prefill_same,
+            "first_routing_difference": {str(s): v for s, v in
+                                         sorted(first.items())},
+            "sessions_never_rerouted": n - len(first),
+            "max_abs_logit_dev_before_first_difference":
+                max(before) if before else None,
+            "max_abs_logit_dev_from_first_difference":
+                max(after) if after else None,
+            "max_abs_logit_dev_per_step": dev.max(axis=1).tolist(),
+            "step0_max_abs_prob_dev_by_layer": [
+                float((a[("step", 0, j)][1] - b[("step", 0, j)][1]).abs()
+                      .max()) for j in range(L)]}
+
+
 def logit_diff(run_a, run_b, reach):
     """Max |a - b| over two runs' prefill and step logits, leaving out each
     session from the step a routing tie first reached."""
@@ -855,10 +1098,11 @@ def expected_launches(cfg, prompts, steps):
 def small_parity_phase(torch):
     """Reduced models served on the card (through the kernels) and on the
     CPU (plain versions) with the same weights and token feed: granite-8b
-    with fp32 and int8 pools, and qwen2-moe-a2.7b with its 60 experts,
-    top-4, and a narrow expert width.  fp32: 1e-4.  int8: k/v differ by
-    fp32 rounding between the devices, so an element on a rounding edge can
-    quantize one step apart: 1e-2, far below the int8-vs-fp32 deviation."""
+    and qwen2-moe-a2.7b (its 60 experts, top-4, and a narrow expert width),
+    each with fp32 and int8 pools.  fp32: 1e-4.  int8: k/v differ by fp32
+    rounding between the devices, so an element on a rounding edge can
+    quantize one step apart: 1e-2, far below the int8-vs-fp32 deviation.
+    A routing difference must be a tie (``routing_ties``)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -870,7 +1114,7 @@ def small_parity_phase(torch):
 
     cases = (("granite-8b", {}, (("fp32", 1e-4), ("int8", 1e-2))),
              ("qwen2-moe-a2.7b", dict(n_experts=60, moe_top_k=4, d_expert=32),
-              (("fp32", 1e-4),)))
+              (("fp32", 1e-4), ("int8", 1e-2))))
     steps = 6
     for seed, (name, kw, pools) in enumerate(cases, start=2):
         cfg = dataclasses.replace(get_config(name).reduced(), **kw)
@@ -1056,7 +1300,7 @@ def serving_phase(torch, arch, phase):
     torch.cuda.empty_cache()
     reach = routing_ties(rec, r_rec, SERVE_PROMPTS, L, SERVE_STEPS,
                          cfg.moe_top_k, b_per_slot=True)
-    del rec, r_rec
+    del r_rec
     diff = logit_diff(run, r_run, reach)
     agree = float(np.mean([np.array_equal(np.argmax(a, -1), np.argmax(b, -1))
                            for a, b in zip(logits, r_run[2])]))
@@ -1065,11 +1309,17 @@ def serving_phase(torch, arch, phase):
     sim = Sim(seed=0)
     q8 = BatchEngine(module, sim, n_slots=8, page_size=32, kv_dtype="int8",
                      device="cuda")
-    _, _, q_logits, q_step_s, _, _ = _drive(q8, sim, prompts, SERVE_STEPS,
-                                            feed)
+    with recording_gating() as q_rec:
+        q_run = _drive(q8, sim, prompts, SERVE_STEPS, feed)
+    q_logits, q_step_s = q_run[2], q_run[3]
     del q8
     torch.cuda.empty_cache()
     dev8 = max(float(np.abs(a - b).max()) for a, b in zip(q_logits, logits))
+    if cfg.arch == "moe":
+        emit({"phase": f"{phase}_int8_trace", **int8_trace(
+            rec, q_rec, run, q_run, SERVE_PROMPTS, L, SERVE_STEPS,
+            cfg.moe_top_k)})
+    del rec, q_rec
     emit({"phase": f"{phase}_replay",
           "per_slot_max_abs_logit_diff": diff, "tolerance": 1e-3,
           "per_slot_routing_ties": {str(s): t for s, t in reach.items()},
@@ -1270,7 +1520,9 @@ def handoff_end_to_end(torch, cfg, params, tokens):
 def profile_decode(torch, module, prompts, feed, steps: int = 4):
     """Where a fused decode step's time goes: ``torch.profiler`` over a
     few steps of the same feed; device busy share = summed kernel time
-    over the window's wall time."""
+    over the window's wall time.  For MoE, a second window of as many steps
+    that records shapes gives the router product's and the gating's device
+    time per step (``router_gating_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1281,7 +1533,7 @@ def profile_decode(torch, module, prompts, feed, steps: int = 4):
     eng = BatchEngine(module, sim, n_slots=8, page_size=32, device="cuda")
     sessions = [f"s{i}" for i in range(len(prompts))]
     for sid, p in zip(sessions, prompts):
-        sim.run_process(eng.open(sid, p, p.shape[1] + steps + 2))
+        sim.run_process(eng.open(sid, p, p.shape[1] + 2 * steps + 2))
     eng.step(sessions, feed[0])                 # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1291,6 +1543,15 @@ def profile_decode(torch, module, prompts, feed, steps: int = 4):
             eng.step(sessions, feed[t + 1])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    moe = {}
+    if module.cfg.arch == "moe":
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as shaped:
+            for t in range(steps):
+                eng.step(sessions, feed[steps + t + 1])
+            torch.cuda.synchronize()
+        moe = router_gating_ms(shaped, module.cfg, len(sessions), steps)
     eng.close(sessions)
     kernels = []          # device-side events only (ops would count twice)
     for ev in prof.key_averages():
@@ -1306,7 +1567,31 @@ def profile_decode(torch, module, prompts, feed, steps: int = 4):
           "top_device_ops": [
               {"name": name[:80], "calls_per_step": n / steps,
                "ms_per_step": us / steps / 1e3}
-              for us, n, name in kernels[:12]]})
+              for us, n, name in kernels[:12]], **moe})
+
+
+def router_gating_ms(prof, cfg, M: int, steps: int) -> dict:
+    """Device ms per step of the router product and the gating in a
+    profile that recorded shapes: the kernels of every ``aten::mm`` of
+    shapes (M, d_model) x (d_model, n_experts), the product before it was
+    folded into the gating kernel, and every kernel named ``*gating_kernel*``
+    (the logits-in gating, or the router kernel that does both)."""
+    from torch.autograd import DeviceType
+
+    shapes = [[M, cfg.d_model], [cfg.d_model, cfg.n_experts]]
+    product = sum(ev.device_time_total for ev in prof.key_averages(
+        group_by_input_shape=True) if ev.key == "aten::mm"
+        and [list(x) for x in ev.input_shapes] == shapes)
+    gating = [(ev.key[:80], ev.count / steps, ev.self_device_time_total)
+              for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA
+              and "gating_kernel" in ev.key]
+    gating_us = sum(us for _, _, us in gating)
+    return {"router_product_ms_per_step": product / steps / 1e3,
+            "gating_ms_per_step": gating_us / steps / 1e3,
+            "router_gating_ms_per_step": (product + gating_us) / steps / 1e3,
+            "gating_kernels": [{"name": n, "calls_per_step": c}
+                               for n, c, _ in gating]}
 
 
 def release(torch, before: str) -> None:
@@ -1343,7 +1628,8 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB
     paged = paged_phase(torch, flush, logs.get("paged_attention", ""))
     flash = flash_phase(torch, flush, logs.get("flash_attention", ""))
-    gating = gating_phase(torch, flush)
+    gating_phase(torch, flush)
+    router = router_gating_phase(torch, flush, logs.get("moe_gating", ""))
     mlstm = mlstm_phase(torch, flush, logs.get("mlstm_scan", ""))
     del flush
     small_parity_phase(torch)
@@ -1376,14 +1662,18 @@ def main() -> int:
          "library_ms": flash["library_ms"]},
         {"name": "moe_gating", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gating.cu",
-         "replaces": "src/repro/kernels/moe_gating.py:22",
+         "entry": "router_gating_cuda (kernels/moe_gating.py)",
+         "replaces": "src/repro/kernels/moe_gating.py:22 + "
+                     "src/repro/models/moe.py:90",
          "launches": moe_counts["moe_gating"],
-         "max_abs_err": gating["max_abs_err_all"],
-         # times at T=8, the decode step that makes most of the launches
-         "ms": gating["T8"]["kernel_ms"], "plain_ms": gating["T8"]["plain_ms"],
-         "bound_ms": gating["T8"]["bound_ms"],
-         "bound_by": gating["T8"]["bound_by"],
-         "library_ms": gating["library_ms"]},
+         "max_abs_err": router["max_abs_err"],
+         # times at T=8 (cold L2 by a rewrite), the decode step that makes
+         # most of the launches
+         "ms": router["T8"]["kernel_ms"]["rewrite"],
+         "plain_ms": router["T8"]["plain_ms"],
+         "bound_ms": router["T8"]["bound_ms"],
+         "bound_by": router["T8"]["bound_by"],
+         "library_ms": router["library_ms"]},
         {"name": "mlstm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
          "replaces": "src/repro/kernels/mlstm_scan.py:25",

@@ -163,9 +163,10 @@ paged_split_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
   // the merge pass may launch now: it waits for this grid before reading
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
-  // the engine keeps length < NP * page; clamp so a bad length cannot walk
-  // off the block table
-  const int len = min(max(lengths[m], 0), NP * page);
+  // the engine keeps length < NP * page.  Past that, follow the reference:
+  // its write of the current token clamps to the table's last row, T - 1,
+  // so it attends cached rows 0..T-2 and the current token
+  const int len = min(max(lengths[m], 0), NP * page - 1);
   const int live_pages = (len + page - 1) / page;
   const int p0 = split * pps;
   if (p0 >= live_pages) {
@@ -401,7 +402,7 @@ paged_merge_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
   constexpr int kBatch = 8;   // partial accumulators loaded at once
   const int hk = blockIdx.x, m = blockIdx.y;
   const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int len = min(max(lengths[m], 0), NP * page);
+  const int len = min(max(lengths[m], 0), NP * page - 1);  // as the split pass
   // the live splits are a prefix: those that start below ceil(len / page)
   const int live = ((len + page - 1) / page + pps - 1) / pps;
   const size_t head = (size_t)m * Hk * REP + hk * REP + r;

@@ -64,6 +64,15 @@ def moe_gating(logits: torch.Tensor, k: int,
     return fn(logits, k)
 
 
+def router_gating(x: torch.Tensor, router: torch.Tensor, k: int,
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (T, D) @ router (D, E), then the gating: (weights (T,k), experts
+    (T,k) int32, probs (T,E)).  Counts under ``moe_gating``."""
+    fn = (_gating.router_gating_cuda if _route(x)
+          else _gating.router_gating_plain)
+    return fn(x, router, k)
+
+
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                log_i: torch.Tensor, log_f: torch.Tensor, C0: torch.Tensor,
                n0: torch.Tensor, m0: torch.Tensor,

@@ -86,15 +86,15 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     cached tokens per slot; k/v_new (M, Hk, hd).  Returns (M, H, hd).
 
     The engine allocates the page for the current token before the call,
-    so ``length < NP * page`` always holds; it is checked here rather than
-    emulating ``dynamic_update_slice``'s clamp.
+    so ``length < T = NP * page`` holds there.  A length at or past ``T``
+    follows the reference, whose ``dynamic_update_slice`` clamps the
+    current token's write to row ``T - 1``: cached rows ``0..T-2`` and the
+    current token, as at ``length = T - 1``.
     """
     M, H, hd = q.shape
     P, page, Hk, _ = k_pool.shape
     NP = block_tables.shape[1]
     T = NP * page
-    if M and int(lengths.max()) >= T:
-        raise ValueError(f"a slot's length reaches past its {NP} pages")
     bt = block_tables.long()
     kg = k_pool[bt]                                    # (M, NP, page, Hk, hd)
     vg = v_pool[bt]
@@ -104,7 +104,7 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     kg = kg.reshape(M, T, Hk, hd).float()
     vg = vg.reshape(M, T, Hk, hd).float()
     rows = torch.arange(M, device=q.device)
-    ln = lengths.long()
+    ln = _clamped(lengths, T)
     # place the current token at its true cache index (gathered copies,
     # the pool itself is untouched)
     kg[rows, ln] = k_new.float()
@@ -120,6 +120,11 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("mht,mthd->mhd", probs, vv)
     return out.to(q.dtype)
+
+
+def _clamped(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    """Lengths as the reference reads them: at most ``T - 1``."""
+    return lengths.long().clamp(max=T - 1)
 
 
 def _dequant(pool: torch.Tensor, scales: Optional[torch.Tensor],
@@ -144,7 +149,8 @@ def paged_split_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
     Returns (m, l, acc): m and l (M, Hk, S, rep), acc (M, Hk, S, rep, hd),
     S = ceil(NP / pages_per_split).  A split with no cached row is empty:
-    m = -inf, l = 0, acc = 0.
+    m = -inf, l = 0, acc = 0.  A length at or past ``NP * page`` reads as
+    ``NP * page - 1``, as in :func:`paged_attention_plain`.
     """
     M, H, hd = q.shape
     page, Hk = k_pool.shape[1], k_pool.shape[2]
@@ -160,7 +166,7 @@ def paged_split_plain(q: torch.Tensor, k_pool: torch.Tensor,
     qr = q.reshape(M, Hk, H // Hk, hd)
     s = torch.einsum("mkrd,mswkd->mksrw", qr, kg) / math.sqrt(hd)
     pos = torch.arange(S * W, device=q.device).reshape(S, W)
-    live = pos[None] < lengths.long()[:, None, None]   # (M, S, W)
+    live = pos[None] < _clamped(lengths, NP * page)[:, None, None]  # (M, S, W)
     s = s.masked_fill(~live[:, None, :, None, :], -math.inf)
     m = s.amax(-1)
     p = torch.exp(s - m.masked_fill(m == -math.inf, 0.0)[..., None])
@@ -204,8 +210,9 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     """Same contract as :func:`paged_attention_plain`, on the card.
 
     Reads only each slot's first ``ceil(length / page)`` pages, so padded
-    block-table entries are never touched; a length past the table is
-    clamped to it inside the kernel.  Both passes count as one launch.
+    block-table entries are never touched; a length at or past the table
+    is read as ``NP * page - 1`` inside the kernel, as the plain version
+    reads it.  Both passes count as one launch.
     """
     global launches
     M, H, hd = q.shape

@@ -7,10 +7,11 @@ one batched SwiGLU over ``(G, E, C, D)`` buffers.
 
 Differences from the JAX package:
 
-* Gating always goes through :func:`repro_torch.kernels.ops.moe_gating`
-  (the CUDA kernel on the card, its plain version on the CPU), so there is
-  no ``use_kernel`` argument: the kernel and the JAX ``topk_gating``
-  compute the same function, ties to the lower expert index included.
+* The router product and the gating always go through
+  :func:`repro_torch.kernels.ops.router_gating` (one CUDA kernel on the
+  card, its plain version on the CPU), so there is no ``use_kernel``
+  argument: it computes the JAX ``xt @ router`` then ``topk_gating``, ties
+  to the lower expert index included.
 * The combine gathers each kept (token, k) slot and sums over k, instead
   of scatter-adding into the tokens: a float ``index_add_`` on the card
   uses atomics, whose rounding changes from run to run.
@@ -79,8 +80,8 @@ def run_moe(p: Params, cfg: ModelConfig, x: torch.Tensor,
     E, K = cfg.n_experts, cfg.moe_top_k
     T = B * S
     xt = x.reshape(T, D)
-    logits = xt.float() @ p["router"]
-    weights, experts, probs = ops.moe_gating(logits, K)
+    weights, experts, probs = ops.router_gating(xt.float().contiguous(),
+                                                p["router"], K)
 
     G = cfg.moe_groups if cfg.moe_groups > 1 and T % cfg.moe_groups == 0 else 1
     Tg = T // G

@@ -21,9 +21,12 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
 from repro_torch.kernels.mlstm_scan import (KERNEL_CHUNK, mlstm_prep_cuda,
                                             mlstm_prep_plain, mlstm_scan_cuda,
                                             mlstm_scan_plain)
-from repro_torch.kernels.moe_gating import moe_gating_cuda, moe_gating_plain
+from repro_torch.kernels.moe_gating import (moe_gating_cuda, moe_gating_plain,
+                                           router_gating_cuda,
+                                           router_gating_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                 paged_attention_plain)
+                                                 paged_attention_plain,
+                                                 split_pages)
 from repro_torch.serving.batch import _quant_page_int8
 
 
@@ -88,6 +91,44 @@ def _gating_logits(T, E, device, seed=0, ties=False):
     else:
         x = rng.normal(size=(T, E)) * 2
     return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def _router_inputs(T, D, E, device, seed=0, scale=None, ties=False):
+    """x ~ N(0, 1) (T, D) and a router ~ N(0, scale^2) (D, E), by default
+    scale = 2 / sqrt(D) (logits spread about 2); with ``ties`` the router's
+    columns come in equal pairs and x's row 0 is zero, so twin logits are
+    equal and row 0 is uniform."""
+    rng = np.random.default_rng(seed)
+    scale = 2 / np.sqrt(D) if scale is None else scale
+    x = rng.normal(size=(T, D))
+    if ties:
+        half = rng.normal(size=(D, E // 2)) * scale
+        router = np.concatenate([half, half], axis=1)
+        x[0] = 0
+    else:
+        router = rng.normal(size=(D, E)) * scale
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return t(x), t(router)
+
+
+#: two runs may order experts differently only where the K-th and (K+1)-th
+#: probabilities are this close (a rounding tie)
+TIE_GAP = 1e-5
+
+
+def _check_router(got, want, k, ties=False):
+    """Ids equal in every row whose plain K-th and (K+1)-th probabilities
+    differ by more than TIE_GAP (every row for constructed ties), weights
+    within 1e-6 on the rows whose ids agree, probabilities within 1e-6."""
+    w, ids, probs = got
+    wp, ip, pp = want
+    top = pp.topk(k + 1, dim=1).values
+    near = top[:, k - 1] - top[:, k] <= TIE_GAP
+    agree = (ids == ip).all(dim=1)
+    assert ids.dtype == torch.int32
+    assert bool(agree.all() if ties else agree[~near].all())
+    assert (w - wp)[agree].abs().max().item() <= 1e-6
+    assert (probs - pp).abs().max().item() <= 1e-6
 
 
 #: m0 of each start state; "high" and "low" are warm memories with m far
@@ -174,6 +215,23 @@ def test_gating_cuda_wrapper_refuses_cpu_tensors():
         moe_gating_cuda(_gating_logits(8, 60, "cpu"), 4)
 
 
+def test_router_gating_on_the_cpu_takes_the_plain_version():
+    """On the CPU any D, E and k take the plain version: the kernel's limits
+    bind only on the card."""
+    before = ops.launch_counts()
+    for D, E, k in ((64, 60, 4), (30, 65, 4), (16, 16, 9)):
+        x, router = _router_inputs(7, D, E, "cpu", seed=E)
+        got, want = (ops.router_gating(x, router, k),
+                     router_gating_plain(x, router, k))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.launch_counts() == before
+
+
+def test_router_gating_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="on one card"):
+        router_gating_cuda(*_router_inputs(8, 64, 60, "cpu"), 4)
+
+
 def test_mlstm_on_the_cpu_takes_the_plain_version():
     """Any head dim takes the plain version on the CPU: the kernel's
     limits (hd a multiple of 32 up to 1024) bind only on the card."""
@@ -217,13 +275,26 @@ def test_paged_cuda_matches_plain(cuda, quant, hk, rep, hd):
 #: the smoke's edge cases (hk, rep, lengths, table width) at hd 128, page 32:
 #: lengths either side of the 4-page (128-row) splits granite-8b's decode
 #: plans, one slot at 8191 beside empty ones, a table far wider than any
-#: length with its padding on poisoned pages, and qwen2-moe-a2.7b's heads
+#: length with its padding on poisoned pages, qwen2-moe-a2.7b's heads, and
+#: one long session decoding alone or beside a short one: 64 splits of 4
+#: pages, past the 32 the merge pass reads at once
 PAGED_EDGES = {
     "split_edges": (8, 4, [127, 128, 129, 255, 256, 257, 0, 1], None),
     "long_8191": (8, 4, [8191, 0, 0, 0, 0, 0, 0, 0], None),
     "wide_table": (8, 4, [0, 5, 40, 100, 31, 64, 1, 33], 256),
     "qwen_heads": (16, 1, [0, 31, 32, 33, 100, 2047, 2048, 2069], None),
+    "alone_8191": (8, 4, [8191], None),
+    "pair_8191_33": (8, 4, [8191, 33], None),
 }
+#: the cases whose plan has more than 32 splits
+PAGED_64_SPLITS = ("alone_8191", "pair_8191_33")
+
+
+def test_the_long_session_cases_plan_64_splits():
+    for case in PAGED_64_SPLITS:
+        hk, _, lengths, _ = PAGED_EDGES[case]
+        NP = -(-(max(lengths) + 1) // 32)
+        assert -(-NP // split_pages(NP, 32, len(lengths), hk)) == 64, case
 
 
 @pytest.mark.gpu
@@ -254,6 +325,35 @@ def test_paged_cuda_is_bit_repeatable(cuda, quant, hk, rep):
     b = paged_attention_cuda(*args)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_64_SPLITS)
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_paged_cuda_past_32_splits_is_bit_repeatable(cuda, quant, case):
+    hk, rep, lengths, _ = PAGED_EDGES[case]
+    args = _paged_inputs(lengths, 32, hk, rep, 128, cuda, quant, seed=7)
+    a = paged_attention_cuda(*args)
+    b = paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [0, 5], ids=["T", "T+5"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_paged_cuda_length_past_the_table(cuda, quant, over):
+    """At ``length >= T = NP * page`` both passes read the length as
+    ``T - 1``, as the plain version and the reference do (row ``T - 1``,
+    which would be read otherwise, is poisoned): 1e-4."""
+    args = _paged_inputs([2047, 40, 0, 95], 32, 8, 4, 128, cuda, quant)
+    T = args[3].shape[1] * 32                  # slot 0 owns every page
+    args[4][0] = T + over
+    got = paged_attention_cuda(*args)
+    want = paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-4
 
 
 @pytest.mark.gpu
@@ -321,6 +421,82 @@ def test_gating_cuda_refuses_what_one_warp_cannot_hold(cuda, E, K):
         ops.moe_gating(_gating_logits(8, 60, cuda).double(), 4)
     with pytest.raises(ValueError, match="contiguous"):
         ops.moe_gating(_gating_logits(60, 8, cuda).T, 4)
+    assert ops.launch_counts()["moe_gating"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 8, 300, 2048, 2050])
+@pytest.mark.parametrize("D,E,K", [(2048, 60, 4), (2048, 16, 4),
+                                   (1024, 64, 8), (64, 60, 4)])
+def test_router_gating_cuda_matches_plain(cuda, T, D, E, K):
+    """The router kernel against ``router_gating_plain`` (fp64 products
+    rounded once on both sides), under ``_check_router``'s bounds; two
+    launches agree to the bit; one launch counted under moe_gating."""
+    x, router = _router_inputs(T, D, E, cuda, seed=T + D + E)
+    before = ops.launch_counts()["moe_gating"]
+    got = ops.router_gating(x, router, K)
+    assert ops.launch_counts()["moe_gating"] == before + 1
+    again = router_gating_cuda(x, router, K)
+    want = router_gating_plain(x, router, K)
+    torch.cuda.synchronize()
+    _check_router(got, want, K)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,scale,ties", [(2048, 0.02, False), (8, None, True),
+                                          (2050, None, True)],
+                         ids=["init_scale", "ties8", "ties2050"])
+def test_router_gating_cuda_init_scale_and_ties(cuda, T, scale, ties):
+    """The init's 0.02 router scale, and constructed ties (twin router
+    columns, a zero row of x), whose ids must be equal in every row."""
+    x, router = _router_inputs(T, 2048, 60, cuda, seed=T, scale=scale,
+                               ties=ties)
+    got = router_gating_cuda(x, router, 4)
+    want = router_gating_plain(x, router, 4)
+    torch.cuda.synchronize()
+    _check_router(got, want, 4, ties=ties)
+    if ties:
+        assert got[1][0].tolist() == [0, 1, 2, 3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("T", [8, 2048])
+def test_router_gating_cuda_every_cluster_size(cuda, cluster, T):
+    """Every cluster size the kernel takes, at decode's and a prompt's
+    token rows (the plan's own sizes are 16 and 2)."""
+    x, router = _router_inputs(T, 2048, 60, cuda, seed=cluster + T)
+    got = router_gating_cuda(x, router, 4, cluster)
+    again = router_gating_cuda(x, router, 4, cluster)
+    want = router_gating_plain(x, router, 4)
+    torch.cuda.synchronize()
+    _check_router(got, want, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_router_gating_cuda_refuses_what_it_cannot_take(cuda):
+    """On the card there is no hand-over to the plain version."""
+    before = ops.launch_counts()["moe_gating"]
+    x, router = _router_inputs(8, 64, 60, cuda)
+    refused = {
+        "E must be": (x, _router_inputs(8, 64, 65, cuda)[1], 4),
+        "k must be": (x, router, 9),
+        "multiple of 4": (*_router_inputs(8, 30, 60, cuda), 4),
+        "float32": (x.double(), router.double(), 4),
+        "contiguous": (x, router.T.contiguous().T, 4),
+        "aligned": (torch.empty(8 * 64 + 1, device=cuda)[1:].view(8, 64),
+                    router, 4),
+        "16-byte": (x, torch.empty(64 * 60 + 1, device=cuda)[1:].view(64, 60),
+                    4),
+        "rows": (x, router[:32].contiguous(), 4),
+    }
+    for match, args in refused.items():
+        with pytest.raises(ValueError, match=match):
+            ops.router_gating(*args)
+    with pytest.raises(ValueError, match="cluster"):
+        router_gating_cuda(x, router, 4, 3)
     assert ops.launch_counts()["moe_gating"] == before
 
 

@@ -96,9 +96,18 @@ def test_paged_poison_does_not_leak():
 
 
 def test_paged_plain_refuses_length_past_table():
-    args = _torch(_paged_problem(3, [NP * PAGE]))
-    with pytest.raises(ValueError):
-        paged_attention_plain(**args)
+    """A length at or past the table does not read past it: as the
+    reference (whose write of the current token clamps to the last row), it
+    attends the cached rows below ``NP * PAGE - 1`` and the current token,
+    exactly as at ``NP * PAGE - 1``."""
+    args = _paged_problem(3, [NP * PAGE, NP * PAGE + 5])
+    want = np.asarray(paged_attention_jnp(
+        **{k: jnp.asarray(v) for k, v in args.items()}))
+    got = paged_attention_plain(**_torch(args))
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL["float32"],
+                               atol=TOL["float32"] / 10)
+    args["lengths"][:] = NP * PAGE - 1
+    assert torch.equal(paged_attention_plain(**_torch(args)), got)
 
 
 def _flash_inputs(seed, B, H, Sq, Sk, hd, dtype):

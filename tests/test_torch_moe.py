@@ -4,6 +4,9 @@
   (``moe_gating_tokens`` in interpret mode) and against
   ``ref.moe_gating_ref``.  Expert ids must be equal; weights and
   probabilities agree within 1e-6 (the softmax sums in another order).
+* The router product + gating (``router_gating_plain``, the product summed
+  in fp64 and rounded once) against the JAX model's ``xt @ router`` then
+  the TPU kernel and ``topk_gating``.
 * ``run_moe`` through the weight bridge, with and without token drops, in
   one and in four groups: y within 1e-5, the aux loss within 1e-6.
 * Reduced qwen2-moe-a2.7b and dbrx-132b: forward logits, greedy prefill +
@@ -12,6 +15,8 @@
   interpret mode), the per-slot path and pipeline shards.  The JAX
   forward's Pallas flash kernel does not run on this jax (it asks for
   ``pltpu.TPUCompilerParams``), so the forward compares the jnp paths.
+* Reduced qwen2-moe-a2.7b with its 60 experts, top-4, served by both
+  engines with int8 KV pools on one replayed feed.
 """
 
 import dataclasses
@@ -34,7 +39,8 @@ from repro.serving.sharded import ShardModule as JaxShardModule
 from repro_torch.configs import get_config
 from repro_torch.core.simnet import Sim
 from repro_torch.kernels import ops
-from repro_torch.kernels.moe_gating import moe_gating_plain
+from repro_torch.kernels.moe_gating import (moe_gating_plain,
+                                           router_gating_plain, router_logits)
 from repro_torch.launch import serve
 from repro_torch.models import decoder, moe
 from repro_torch.params import params_from_numpy, params_to_numpy
@@ -51,12 +57,12 @@ def _logits(T, E, seed):
         np.float32)
 
 
-def _check_gating(got, want):
+def _check_gating(got, want, tol=GATE_TOL):
     w, ids, probs = (t.numpy() for t in got)
     wr, ir, pr = (np.asarray(a) for a in want)
     np.testing.assert_array_equal(ids, ir.astype(np.int32))
-    np.testing.assert_allclose(w, wr, atol=GATE_TOL, rtol=0)
-    np.testing.assert_allclose(probs, pr, atol=GATE_TOL, rtol=0)
+    np.testing.assert_allclose(w, wr, atol=tol, rtol=0)
+    np.testing.assert_allclose(probs, pr, atol=tol, rtol=0)
 
 
 # ----------------------------------------------------------------- gating
@@ -101,6 +107,57 @@ def test_gating_ties_go_to_the_lowest_expert():
             first, second = np.argsort(-half[r])[:2]
             np.testing.assert_array_equal(
                 row, [first, first + 8, second, second + 8])
+
+
+def _router_inputs(T, D, E, seed):
+    """x ~ N(0, 1) and a router ~ N(0, (2 / sqrt(D))^2): logits of spread
+    about 2, as the gating tests' own."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(T, D)).astype(np.float32),
+            (rng.normal(size=(D, E)) * 2 / np.sqrt(D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("T,D,E,K", [(8, 2048, 60, 4), (256, 512, 60, 4),
+                                     (300, 256, 16, 4), (1024, 1024, 64, 8),
+                                     (1, 64, 60, 4), (37, 100, 60, 4)])
+def test_router_gating_matches_the_jax_product_and_gating(T, D, E, K):
+    """The router product, then the gating, against the JAX model's ``xt @
+    router`` followed by the TPU kernel (where its ``T % min(256, T) ==
+    0`` holds) and by ``topk_gating``.
+
+    * The plain version's logits are ``x @ router`` correctly rounded to
+      fp32 (it sums in fp64): within half an ulp of the float64 product.
+    * The JAX fp32 product is within its own rounding bound of them:
+      ``gamma_D * (|x| @ |router|)`` plus half an ulp (gamma_D = D u /
+      (1 - D u), u = 2^-24, the standard bound of a D-term fp32 dot).
+    * Gated from the same logits, the port and the JAX gating agree as the
+      gating tests hold them: ids exact, weights and probabilities within
+      1e-6.
+    * From each side's own product: ids exact, and weights and
+      probabilities within 1e-6 plus the gating's first-order response to
+      the products' difference d: a weight or probability p moves by at
+      most 2 p max|d| of its row, and p <= 1.
+    """
+    x, router = _router_inputs(T, D, E, T + D + E)
+    xt, rt = torch.from_numpy(x), torch.from_numpy(router)
+    got = router_gating_plain(xt, rt, K)
+    logits = router_logits(xt, rt).numpy()
+    exact = x.astype(np.float64) @ router.astype(np.float64)
+    u = 2.0 ** -24
+    assert (np.abs(logits - exact) <= u * np.abs(exact)).all()
+    jl = jnp.asarray(x).astype(jnp.float32) @ jnp.asarray(router)
+    gamma = D * u / (1 - D * u)
+    bound = gamma * (np.abs(x) @ np.abs(router)) + u * np.abs(exact)
+    d = np.abs(np.asarray(jl) - logits)
+    assert (d <= bound).all()
+    fed = {"same_logits": (jnp.asarray(logits), 0.0),
+           "jax_product": (jl, 2 * float(d.max()))}
+    for name, (z, moved) in fed.items():
+        want = [jmoe.topk_gating(z, K)]
+        if T % min(256, T) == 0:
+            want.append(moe_gating_tokens(z, K, interpret=True))
+        for ref in want:
+            _check_gating(got, ref, GATE_TOL + moved)
 
 
 def test_gating_refuses_more_picks_than_experts():
@@ -311,3 +368,42 @@ def test_cli_serves_moe_on_the_cpu_when_asked(capsys):
                 "--batch", "2", "--prompt-len", "8", "--gen", "3"])
     out = capsys.readouterr().out
     assert "arch=qwen2-moe-a2.7b" in out and "6 tokens" in out
+
+
+#: the int8 pool against the JAX engine's int8 pool: both quantize k/v that
+#: agree to fp32 rounding, so an element on a rounding edge can quantize one
+#: int8 step apart on the two sides; 1e-2, the dense int8 pool's bound
+#: between the card and the CPU for the same reason (``chip_smoke.py``
+#: small_parity), far below the int8-vs-fp32 deviation it must not hide
+INT8_LOGIT_TOL = 1e-2
+
+
+def test_int8_pool_moe_engine_matches_the_jax_int8_engine():
+    """qwen2-moe-a2.7b reduced with its 60 experts, top-4 and a narrow
+    expert width, served by both engines with int8 KV pools on the JAX
+    engine's greedy feed: same greedy tokens, logits within
+    ``INT8_LOGIT_TOL``, same cache bytes and simulated costs."""
+    jcfg, cfg = _model_cfgs("qwen2-moe-a2.7b", n_experts=60, moe_top_k=4,
+                            d_expert=32)
+    jparams = jax_ops_for(jcfg).init(jcfg, jax.random.PRNGKey(3))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    prompts = [np.random.default_rng(40 + n).integers(0, cfg.vocab, (1, n),
+                                                      dtype=np.int32)
+               for n in (5, 11, 17, 8)]
+    jsim = JaxSim(seed=6)
+    jeng = JaxBatchEngine(JaxShardModule(jcfg, jparams, (0, jcfg.n_layers),
+                                         True, True), jsim, n_slots=4,
+                          page_size=8, kv_dtype="int8")
+    assert jeng.fused and jeng.kv_dtype == "int8"
+    j_first, j_logits, feed, j_cost, j_kv = _drive(jeng, jsim, prompts, 10)
+    sim = Sim(seed=6)
+    eng = BatchEngine(ShardModule(cfg, params, (0, cfg.n_layers), True, True),
+                      sim, n_slots=4, page_size=8, kv_dtype="int8",
+                      device="cpu")
+    assert eng.fused and eng.kv_dtype == "int8"
+    first, logits, _, cost, kv = _drive(eng, sim, prompts, 10, feed)
+    np.testing.assert_allclose(first, j_first, atol=LOGIT_TOL, rtol=0)
+    for a, b in zip(logits, j_logits):
+        np.testing.assert_array_equal(np.argmax(a, -1), np.argmax(b, -1))
+        np.testing.assert_allclose(a, b, atol=INT8_LOGIT_TOL, rtol=0)
+    assert cost == pytest.approx(j_cost, rel=1e-12) and kv == j_kv

@@ -205,3 +205,27 @@ def test_split_plan_covers_every_page_once(NP, page, M, Hk):
     assert w == NP or w * page >= MIN_SPLIT_ROWS
     least = min(NP, -(-MIN_SPLIT_ROWS // page))
     assert w == least or M * Hk * -(-NP // (w - 1)) > TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("over", [0, 5], ids=["T", "T+5"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_a_length_past_the_table_follows_the_reference(quant, over):
+    """At ``length >= T = NP * page`` the reference clamps the current
+    token's write to row ``T - 1`` (``dynamic_update_slice``) and so
+    attends cached rows ``0..T-2`` and the current token.  The plain
+    version and its two passes do the same; row ``T - 1`` holds poison
+    here, so reading it would show."""
+    a = _problem([23, 7, 0, 15], seed=4, quant=quant)   # 3 pages: T = 24
+    T = a["block_tables"].shape[1] * PAGE
+    a["lengths"] = np.asarray([T + over, 7, 0, 15], np.int32)
+    plain = paged_attention_plain(**_torch(a))
+    jax_out = np.asarray(paged_attention_jnp(
+        **{k: jnp.asarray(v) for k, v in a.items()}))
+    np.testing.assert_allclose(plain.numpy(), jax_out, rtol=TOL32,
+                               atol=TOL32 / 10)
+    M, NP = a["block_tables"].shape
+    for width in (1, split_pages(NP, PAGE, M, HK), NP):
+        np.testing.assert_allclose(_two_passes(_torch(a), width).numpy(),
+                                   jax_out, rtol=TOL32, atol=TOL32 / 10)
+    a["lengths"][0] = T - 1
+    assert torch.equal(paged_attention_plain(**_torch(a)), plain)
