@@ -17,9 +17,10 @@ Phases, each printed as one JSON object per line:
    wider than any length with its padding on poisoned pages,
    qwen2-moe-a2.7b's H=16, Hk=16, every slot at 8191, and one session at
    8191 alone or beside one at 33 (64 splits, past the merge pass's 32 at
-   once); two launches must agree to the bit, also at 64 splits; timed with cold L2 at today's shape, qwen2-moe's
-   and all-8191, each beside its bytes bound, today's shape also with a
-   clean cold L2 and with every length 0 (the floor); the split pass's
+   once); two launches must agree to the bit, also at 64 splits; timed
+   with cold L2 at today's shape, qwen2-moe's and all-8191, each beside
+   its bytes bound, today's shape also with a clean cold L2 and with
+   every length 0 (the floor); the split pass's
    shared memory and resident blocks, and both passes' ptxas registers and
    spills;
 4. flash_attention — the kernel at hd=128 over ``FLASH_CASES`` (B=1, H=32,
@@ -39,7 +40,7 @@ Phases, each printed as one JSON object per line:
    T in {1, 8, 2048, 2050} and (D, E, K) in {(2048, 60, 4), (2048, 16, 4),
    (1024, 64, 8), (64, 60, 4)}, x ~ N(0, 1) and the router ~ N(0, (2 /
    sqrt(D))^2), one case at the init's 0.02 scale, constructed ties
-   (twin router columns, a zero row of x) and cluster sizes 4, 8 and 16,
+   (twin router columns, a zero row of x) and cluster sizes 1 to 16,
    against ``router_gating_plain``: ids equal in every row whose plain
    K-th and (K+1)-th probabilities differ by more than TIE_GAP (in every
    row for the constructed ties; the others are counted), weights within
