@@ -444,6 +444,19 @@ def test_router_gating_cuda_matches_plain(cuda, T, D, E, K):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("T,D", [(8, 100), (600, 100), (8, 2052), (600, 2052)])
+def test_router_gating_cuda_ragged_slices(cuda, T, D):
+    """D that the plan's slices do not divide evenly: empty ranks at the
+    end of a cluster (D = 100 over 16 blocks), slices shorter than a
+    128-row piece, and a last piece of a few rows."""
+    x, router = _router_inputs(T, D, 60, cuda, seed=T + D)
+    got = router_gating_cuda(x, router, 4)
+    want = router_gating_plain(x, router, 4)
+    torch.cuda.synchronize()
+    _check_router(got, want, 4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("T,scale,ties", [(2048, 0.02, False), (8, None, True),
                                           (2050, None, True)],
                          ids=["init_scale", "ties8", "ties2050"])
