@@ -23,13 +23,23 @@ Phases, each printed as one JSON object per line:
    every length 0 (the floor); the split pass's
    shared memory and resident blocks, and both passes' ptxas registers and
    spills;
-4. flash_attention — the kernel at hd=128 over ``FLASH_CASES`` (B=1, H=32,
-   S=2048 causal, window 128, 17, a ragged S=2050, non-causal; ragged 97
-   with B=2; window 1; the serving layout's repeated k/v; q x 8), fp32
-   and bf16, against ``flash_attention_plain``; timed at granite-8b's
-   (H=32) and qwen2-moe-a2.7b's (H=16) causal prefill of 2048 tokens,
-   with ``scaled_dot_product_attention`` beside it as a yardstick only,
-   and the kernel's ptxas registers, spills and shared memory;
+4. flash_attention — the kernel over ``FLASH_CASES`` (at hd=128: B=1,
+   H=32, S=2048 causal, window 128, 17, a ragged S=2050, non-causal;
+   ragged 97 with B=2; window 1; the serving layout's repeated k/v; q x 8;
+   at minicpm-2b's hd=64, H=36: causal, ragged 2050, window 128, and q x 8
+   in fp32 only),
+   fp32 and bf16, against ``flash_attention_plain``, each output equal to
+   the bit with and without the lse output; timed at granite-8b's (H=32)
+   and qwen2-moe-a2.7b's (H=16) causal prefill of 2048 tokens and at
+   minicpm-2b's (H=36, hd=64), with ``scaled_dot_product_attention``
+   beside it as a yardstick only, and the kernel's ptxas registers,
+   spills and shared memory;
+   flash_backward — the backward kernel under gate T1 over
+   ``FLASH_BWD_CASES``, two launches bit-equal, the forward's lse within
+   1e-5 of the plain version's; timed with a cold L2 at minicpm-2b's
+   (B=1, H=36, S=2048, hd=64) and granite-8b's (H=32, hd=128) causal
+   shape beside its operations bound, the plain version and the backward
+   of ``scaled_dot_product_attention`` (a yardstick only);
 5. moe_gating — the logits-in gating kernel (off the main path since the
    router product was folded in) at T in {1, 8, 2048, 2050} and (E, K) in
    {(60, 4), (16, 4), (64, 8)}, plus duplicated logit columns (ties),
@@ -53,7 +63,7 @@ Phases, each printed as one JSON object per line:
    its 60 experts, top-4, each with fp32 (1e-4) and int8 (1e-2) pools,
    served on the card and on the CPU (plain versions) with the same
    weights: logits must agree and only the card's run launches the
-   kernels;
+   kernels; then train_parity, gate T2;
 7. serving  — granite-8b at full width and full depth in fp32 with
    seeded random weights: a ``BatchEngine`` admits 8
    sessions (two 2048-token prompts through the flash kernel, six short
@@ -73,7 +83,13 @@ Phases, each printed as one JSON object per line:
    and depth in fp32 (5.64 B parameters) served per slot, every prefill's
    mLSTM layers through the mLSTM kernel, under gate G3; then the state
    handoff, layer by layer and end to end, with gate G1 on the kernel's
-   real inputs in every mLSTM layer, and a profile of a few steps.
+   real inputs in every mLSTM layer, and a profile of a few steps;
+10. training — xlstm-1.3b released, then minicpm-2b at full width and
+   depth in fp32 (2.72 B parameters, AdamW) trained 4 steps at B=1,
+   S=2048 through ``repro_torch.launch.train.main``, every layer's
+   attention through the flash forward and backward kernels, under gate
+   T3; its peak memory, and a step's forward, backward and optimizer
+   ms.
 
 The mlstm phase (after moe_gating) holds the mLSTM kernel to gate G1 at
 xlstm-1.3b's widths and reports its two kernels' ptxas registers, spills
@@ -96,6 +112,29 @@ bounds are fixed in advance, each derived from a float64 reference:
   1e-4; and the end-to-end logits of the two routes differ by no more
   than one ulp of the input embeddings moves prefill(2048)'s.
 
+The training path's bounds, fixed before this script's first run of them:
+
+* T1, flash backward kernel vs plain, on the card, over
+  ``FLASH_BWD_CASES`` (minicpm-2b's B=1, H=36, S=2048, hd=64 causal;
+  granite-8b's H=32, hd=128; windows 128 and 1; ragged 2050; B=2 at 97;
+  non-causal; Sq < Sk with a window), dO ~ N(0, 1) from a seeded
+  generator, out and lse the plain forward in float64 rounded to fp32:
+  with g64 the plain backward in float64 and g32 in fp32, for each of dq,
+  dk, dv, max|g_kernel - g64| <= 2 max|g32 - g64| + 1e-6 max|g64|; the
+  forward kernel's lse within 1e-5 of the plain version's; two launches
+  equal to the bit.
+* T2, a reduced minicpm-2b (L=2, d=256, H=4, hd=64, vocab 256), B=2,
+  S=2048, card fp32 vs CPU fp32 and float64, micro-batches 1 and 2, three
+  steps from the same state and batches: each step's loss and grad norm,
+  and step 1's gradient leaves (each over its leaf's largest |cpu64|
+  entry), max|card32 - cpu64| <= max(1e-4, 2 max|cpu32 - cpu64|).
+* T3, minicpm-2b at full width and depth, fp32, B=1, S=2048, 4 steps
+  through ``launch.train.main``: every loss and grad norm finite;
+  ``flash_attention`` and ``flash_attention_bwd`` launched 40 x 4 times
+  each, no other kernel; on one more step through ``make_train_step``'s
+  gradient pass, every gradient leaf finite and not all zero, each
+  layer-stacked leaf (wq, wk, wv among them) nonzero in every layer.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Without a card, or without ``src/repro_torch`` beside this
@@ -108,6 +147,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -423,19 +463,29 @@ def mlstm_ptxas(log: str) -> dict:
                         else "walk" if "mlstm_walk_kernel" in name else None)
 
 
-#: (name, B, H, Sq, Sk, causal, window, form): the served prefill, ragged
-#: tiles, narrow windows, a batch, the serving layout ("gqa": k/v of
-#: (B, S, H/4, hd) repeat_interleaved, as models/common.py builds them)
-#: and large scores ("large": q x 8, where the running-max rescale matters)
-FLASH_CASES = [("causal", 1, 32, 2048, 2048, True, 0, "bshd"),
-               ("window128", 1, 32, 2048, 2048, True, 128, "bshd"),
-               ("ragged", 1, 32, 2050, 2050, True, 0, "bshd"),
-               ("noncausal", 1, 32, 128, 2048, False, 0, "bshd"),
-               ("ragged97_B2", 2, 8, 97, 97, True, 0, "bshd"),
-               ("window17", 1, 32, 2048, 2048, True, 17, "bshd"),
-               ("window1", 1, 8, 300, 300, True, 1, "bshd"),
-               ("gqa", 1, 32, 2048, 2048, True, 0, "gqa"),
-               ("large", 1, 32, 2048, 2048, True, 0, "large")]
+#: (name, B, H, Sq, Sk, causal, window, form, hd): the served prefill,
+#: ragged tiles, narrow windows, a batch, the serving layout ("gqa": k/v of
+#: (B, S, H/4, hd) repeat_interleaved, as models/common.py builds them),
+#: large scores ("large": q x 8, where the running-max rescale matters),
+#: and minicpm-2b's trained attention (H=36, hd=64)
+FLASH_CASES = [("causal", 1, 32, 2048, 2048, True, 0, "bshd", 128),
+               ("window128", 1, 32, 2048, 2048, True, 128, "bshd", 128),
+               ("ragged", 1, 32, 2050, 2050, True, 0, "bshd", 128),
+               ("noncausal", 1, 32, 128, 2048, False, 0, "bshd", 128),
+               ("ragged97_B2", 2, 8, 97, 97, True, 0, "bshd", 128),
+               ("window17", 1, 32, 2048, 2048, True, 17, "bshd", 128),
+               ("window1", 1, 8, 300, 300, True, 1, "bshd", 128),
+               ("gqa", 1, 32, 2048, 2048, True, 0, "gqa", 128),
+               ("large", 1, 32, 2048, 2048, True, 0, "large", 128),
+               ("minicpm", 1, 36, 2048, 2048, True, 0, "bshd", 64),
+               ("minicpm_ragged", 1, 36, 2050, 2050, True, 0, "bshd", 64),
+               ("minicpm_window128", 1, 36, 2048, 2048, True, 128, "bshd", 64),
+               ("minicpm_large", 1, 36, 2048, 2048, True, 0, "large", 64)]
+#: rows checked in fp32 only: q x 8 at hd=64 makes near one-hot rows whose
+#: outputs reach 4-8 in magnitude, where one bf16 ulp is 0.03125, past the
+#: 2e-2 bf16 bound (an H100 run read exactly that); the trained path is
+#: fp32
+FLASH_FP32_ONLY = ("minicpm_large",)
 
 
 def flash_inputs(torch, B, H, Sq, Sk, hd, dtype, form, g):
@@ -463,19 +513,25 @@ def flash_phase(torch, flush, build_log: str):
     g = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, B, H, Sq, Sk, causal, window, form in FLASH_CASES:
-            q, k, v = flash_inputs(torch, B, H, Sq, Sk, hd, dtype, form, g)
+        for name, B, H, Sq, Sk, causal, window, form, d in FLASH_CASES:
+            if dtype != torch.float32 and name in FLASH_FP32_ONLY:
+                continue
+            q, k, v = flash_inputs(torch, B, H, Sq, Sk, d, dtype, form, g)
             got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            with_lse, _ = fa.flash_attention_cuda(
+                q, k, v, causal=causal, window=window, return_lse=True)
             want = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
             torch.cuda.synchronize()
             key = f"{name}_{str(dtype).split('.')[1]}"
             require(bool(torch.isfinite(got.float()).all()), f"flash {key}")
+            require(torch.equal(got, with_lse),
+                    f"flash {key}: the lse output changed the output")
             errs[key] = (got.float() - want.float()).abs().max().item()
             tol = 1e-4 if dtype == torch.float32 else 2e-2
             require(errs[key] <= tol, f"flash {key}: err {errs[key]} > {tol}")
 
-    def timed(B, H, S, dtype=torch.float32):
+    def timed(B, H, S, dtype=torch.float32, hd=hd):
         """Kernel, plain and SDPA times at a causal prefill of S tokens,
         and the bound: only the unmasked pairs' FLOP, each input read and
         the output written once."""
@@ -506,14 +562,137 @@ def flash_phase(torch, flush, build_log: str):
     bf16 = timed(B, H, S, torch.bfloat16)
     res["kernel_bf16_ms"] = bf16["kernel_ms"]
     res["bound_bf16_ms"] = bf16["bound_ms"]
-    # qwen2-moe-a2.7b's prefill: 16 heads
+    # qwen2-moe-a2.7b's prefill: 16 heads; minicpm-2b's trained forward
     res["H16"] = timed(B, 16, S)
+    res["H36_hd64"] = timed(B, 36, S, hd=64)
     lib = build.load("flash_attention", fa._SIGNATURES)
     smem = lib.repro_flash_attention_smem_bytes
     smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int]
     res["ptxas"] = flash_ptxas(build_log)
     res["dynamic_smem_bytes"] = {f"hd{d}": smem(d) for d in (64, 128)}
     emit({"phase": "flash_attention", "B": B, "H": H, "hd": hd, "S": S, **res})
+    return res
+
+
+#: T1's cases: (name, B, H, Sq, Sk, causal, window, hd)
+FLASH_BWD_CASES = [("minicpm", 1, 36, 2048, 2048, True, 0, 64),
+                   ("granite", 1, 32, 2048, 2048, True, 0, 128),
+                   ("window128", 1, 36, 2048, 2048, True, 128, 64),
+                   ("window128_hd128", 1, 8, 2048, 2048, True, 128, 128),
+                   ("window1", 1, 8, 300, 300, True, 1, 64),
+                   ("ragged2050", 1, 36, 2050, 2050, True, 0, 64),
+                   ("ragged2050_hd128", 1, 8, 2050, 2050, True, 0, 128),
+                   ("ragged97_B2", 2, 8, 97, 97, True, 0, 64),
+                   ("noncausal", 1, 32, 128, 2048, False, 0, 128),
+                   ("noncausal_ragged", 1, 8, 65, 97, False, 0, 64),
+                   ("window17_sq97_sk300", 2, 4, 97, 300, True, 17, 128)]
+
+
+def flash_bwd_inputs(torch, B, H, Sq, Sk, hd, causal, window, g):
+    """q, k, v, out, lse, dO on the card in the main path's layout ((B, S,
+    H, hd) viewed as (B, H, S, hd)), dO ~ N(0, 1); out and lse are the plain
+    forward in float64 rounded to fp32, so every input is an fp32 value."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_inputs(torch, B, H, Sq, Sk, hd, torch.float32, "bshd", g)
+    do = torch.randn((B, Sq, H, hd), generator=g, device="cuda").transpose(1, 2)
+    out64, lse64 = fa.flash_attention_plain(
+        q.double(), k.double(), v.double(), causal=causal, window=window,
+        return_lse=True)
+    return q, k, v, torch.empty_like(q).copy_(out64), lse64.float(), do
+
+
+def flash_bwd_ptxas(log: str) -> dict:
+    """ptxas's report of the backward's three kernels at each head dim."""
+    def key_of(name):
+        for part in ("delta", "dkdv", "dq"):
+            if f"flash_bwd_{part}_kernel" in name:
+                hd = re.search(r"ILi(\d+)EE", name)
+                return part + (f"_hd{hd.group(1)}" if hd else "")
+        return None
+    return ptxas_report(log, key_of)
+
+
+def flash_backward_phase(torch, flush, build_log: str):
+    """Gate T1 over ``FLASH_BWD_CASES``, the forward's lse against the plain
+    version's, two launches bit-equal; then times with a cold L2 at
+    minicpm-2b's and granite-8b's causal 2048, beside the bound, the plain
+    version and the backward of ``scaled_dot_product_attention`` (a
+    yardstick only)."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = {}
+    for name, B, H, Sq, Sk, causal, window, hd in FLASH_BWD_CASES:
+        args = flash_bwd_inputs(torch, B, H, Sq, Sk, hd, causal, window, g)
+        kw = {"causal": causal, "window": window}
+        g64 = fa.flash_attention_bwd_plain(*(a.double() for a in args), **kw)
+        g32 = fa.flash_attention_bwd_plain(*args, **kw)
+        gk = fa.flash_attention_bwd_cuda(*args, **kw)
+        again = fa.flash_attention_bwd_cuda(*args, **kw)
+        _, lse_k = fa.flash_attention_cuda(*args[:3], return_lse=True, **kw)
+        _, lse_p = fa.flash_attention_plain(*args[:3], return_lse=True, **kw)
+        torch.cuda.synchronize()
+        res = {"repeat_bit_equal": all(torch.equal(a, b)
+                                       for a, b in zip(gk, again)),
+               "lse_abs_err": (lse_k - lse_p).abs().max().item()}
+        for part, a, b, c in zip(("dq", "dk", "dv"), gk, g32, g64):
+            require(bool(torch.isfinite(a).all()), f"T1 {name} {part}")
+            err = (a.double() - c).abs().max().item()
+            err32 = (b.double() - c).abs().max().item()
+            bound = 2 * err32 + 1e-6 * c.abs().max().item()
+            res[part] = {"err": err, "err_fp32_plain": err32, "bound": bound}
+            require(err <= bound, f"gate T1 fails: {name} {part} {err} > "
+                    f"{bound}")
+        require(res["repeat_bit_equal"], f"T1 {name}: two launches differ")
+        require(res["lse_abs_err"] <= 1e-5,
+                f"T1 {name}: lse err {res['lse_abs_err']} > 1e-5")
+        cases[name] = res
+
+    def timed(B, H, S, hd):
+        """Kernel, plain and SDPA-backward times at a causal S, and the
+        bound: the backward's five products over the visible pairs at the
+        TF32 peak, against its bytes (q, k, v, out, dO, lse read, dq, dk,
+        dv written)."""
+        args = flash_bwd_inputs(torch, B, H, S, S, hd, True, 0, g)
+        flops = 10 * B * H * hd * (S * (S + 1) // 2)
+        nbytes = 4 * (8 * B * H * S * hd + B * H * S)
+        qs, ks, vs = (a.detach().requires_grad_(True) for a in args[:3])
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        res = {"kernel_ms": time_ms(
+            torch, lambda: fa.flash_attention_bwd_cuda(*args), flush=flush),
+            "plain_ms": time_ms(
+                torch, lambda: fa.flash_attention_bwd_plain(*args), iters=5,
+                flush=flush),
+            "library_ms": time_ms(
+                torch, lambda: torch.autograd.grad(o, (qs, ks, vs), args[5],
+                                                   retain_graph=True),
+                flush=flush),
+            "flops": flops, "bytes": nbytes,
+            "bound_ms": max(flops / PEAK_FLOPS["float32"],
+                            nbytes / HBM_BYTES_PER_S) * 1e3}
+        res["bound_by"] = ("operations" if flops / PEAK_FLOPS["float32"]
+                           >= nbytes / HBM_BYTES_PER_S else "bytes")
+        return res
+
+    lib = build.load("flash_attention_bwd", fa._BWD_SIGNATURES)
+    smem = lib.repro_flash_attention_bwd_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+    res = {"cases": cases,
+           "max_abs_err": max(c[p]["err"] for c in cases.values()
+                              for p in ("dq", "dk", "dv")),
+           "max_abs_err_minicpm": max(cases["minicpm"][p]["err"]
+                                      for p in ("dq", "dk", "dv")),
+           "minicpm": timed(1, 36, 2048, 64), "granite": timed(1, 32, 2048, 128),
+           "ptxas": flash_bwd_ptxas(build_log),
+           "dynamic_smem_bytes": {f"hd{d}": {"dkdv": smem(d, 0), "dq": smem(d, 1)}
+                                  for d in (64, 128)}}
+    emit({"phase": "flash_backward", **res})
     return res
 
 
@@ -1089,9 +1268,11 @@ def expected_launches(cfg, prompts, steps):
     if cfg.arch == "ssm":
         n_mlstm = sum(not decoder._is_slstm(cfg, j) for j in range(L))
         return {"paged_decode_attention": 0, "flash_attention": 0,
-                "moe_gating": 0, "mlstm_scan": n_mlstm * len(prompts)}
+                "flash_attention_bwd": 0, "moe_gating": 0,
+                "mlstm_scan": n_mlstm * len(prompts)}
     n_long = sum(p.shape[1] >= 2048 for p in prompts)
     return {"paged_decode_attention": L * steps, "flash_attention": L * n_long,
+            "flash_attention_bwd": 0,
             "moe_gating": L * (len(prompts) + steps) if cfg.arch == "moe" else 0,
             "mlstm_scan": 0}
 
@@ -1229,6 +1410,92 @@ def xlstm_parity_phase(torch):
             f"> {limit}")
 
 
+#: T2: a reduced minicpm-2b (hd=64, so the kernels take it) at B=2, S=2048
+T2_REDUCED = {"n_layers": 2, "d_model": 256, "vocab": 256}
+T2_STEPS = 3
+
+
+def train_parity_phase(torch):
+    """Gate T2: a reduced minicpm-2b trained on the card in fp32 and on the
+    CPU in fp32 and float64 from the same state and batches, with 1 and 2
+    micro-batches: step 1's gradient leaves (each over its leaf's largest
+    |cpu64| entry), then each of three steps' loss and grad norm, within
+    max(1e-4, 2 max|cpu32 - cpu64|) of cpu64.  The card launches the flash
+    forward and backward in every layer of every micro-batch, the CPU
+    never."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.optim import constant_schedule
+    from repro_torch.tree import leaves
+    from repro_torch.params import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.train import make_train_step, train_state_init
+
+    cfg = get_config("minicpm-2b").reduced(**T2_REDUCED)
+    require(cfg.hd == 64, f"reduced head dim {cfg.hd}")
+    base = train_state_to_numpy(
+        train_state_init(cfg, torch.Generator().manual_seed(7), "cpu"))
+    data = make_batch_iterator(cfg.vocab, 2048, 2, seed=7)
+    batches = [next(data) for _ in range(T2_STEPS)]
+    out = {}
+    for mb in (1, 2):
+        runs = {}
+        for name, dev, dt in (("card32", "cuda", np.float32),
+                              ("cpu32", "cpu", np.float32),
+                              ("cpu64", "cpu", np.float64)):
+            state = train_state_from_numpy(base._replace(
+                params=_cast_tree(base.params, dt), opt=type(base.opt)(
+                    base.opt.step, _cast_tree(base.opt.mu, dt),
+                    _cast_tree(base.opt.nu, dt))), dev)
+            require(leaves(state.params)[0].dtype == torch.as_tensor(
+                np.zeros(1, dt)).dtype, f"{name} is not {dt}")
+            step = make_train_step(cfg, constant_schedule(1e-3),
+                                   microbatches=mb)
+            ops.reset_launch_counts()
+            _, _, grads = step.grads_of(state.params, {
+                k: torch.as_tensor(v, device=dev)
+                for k, v in batches[0].items()})
+            grads = [g.double().cpu() for g in leaves(grads)]
+            hist = []
+            for b in batches:
+                state, m = step(state, b)
+                hist.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[name] = (grads, hist, ops.launch_counts())
+            del state, step
+        card, c32, c64 = (runs[k] for k in ("card32", "cpu32", "cpu64"))
+        L = cfg.n_layers
+        want = {k: 0 for k in card[2]}
+        want["flash_attention"] = L * mb * (1 + T2_STEPS)
+        want["flash_attention_bwd"] = want["flash_attention"]
+        require(card[2] == want, f"T2 mb={mb} card launches {card[2]} != "
+                f"{want}")
+        require(not any(c32[2].values()) and not any(c64[2].values()),
+                f"T2 mb={mb}: the CPU runs launched kernels")
+        grad_ratio = []
+        for a, b, c in zip(card[0], c32[0], c64[0]):
+            scale = c.abs().max().item()
+            err = (a - c).abs().max().item() / scale
+            bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
+            grad_ratio.append(err / bound)
+        step_ratio = [[abs(a - c) / max(1e-4, 2 * abs(b - c))
+                       for a, b, c in zip(x, y, z)]
+                      for x, y, z in zip(card[1], c32[1], c64[1])]
+        out[f"mb{mb}"] = {
+            "loss_grad_norm": {k: runs[k][1] for k in runs},
+            "grad_leaf_ratio_to_bound_max": max(grad_ratio),
+            "step_ratio_to_bound": step_ratio, "launches_cuda": card[2]}
+        require(max(grad_ratio) <= 1.0,
+                f"gate T2 fails: mb={mb} gradient leaves {grad_ratio}")
+        require(max(max(r) for r in step_ratio) <= 1.0,
+                f"gate T2 fails: mb={mb} loss / grad norm {step_ratio}")
+    emit({"phase": "train_parity", "config": f"minicpm-2b reduced("
+          f"L={cfg.n_layers}, d={cfg.d_model}, H={cfg.n_heads}, hd={cfg.hd}, "
+          f"vocab={cfg.vocab})", "batch": 2, "seq": 2048, "steps": T2_STEPS,
+          **out})
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -1248,7 +1515,7 @@ def serving_phase(torch, arch, phase):
     from repro_torch.kernels import ops
     from repro_torch.models import decoder
     from repro_torch.serving import BatchEngine, ShardModule
-    from repro_torch.serving.sharded import leaves
+    from repro_torch.tree import leaves
 
     cfg = get_config(arch)
     L = cfg.n_layers
@@ -1364,7 +1631,7 @@ def serving_xlstm_phase(torch):
     from repro_torch.core.simnet import Sim
     from repro_torch.kernels import ops
     from repro_torch.models import decoder
-    from repro_torch.serving.sharded import leaves
+    from repro_torch.tree import leaves
     from repro_torch.serving import BatchEngine, ShardModule
 
     cfg = get_config("xlstm-1.3b")
@@ -1416,6 +1683,115 @@ def serving_xlstm_phase(torch):
     handoff_end_to_end(torch, cfg, params, tokens)
     profile_decode(torch, module, prompts, feed)
     return counts
+
+
+TRAIN_STEPS = 4
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted path, leaf) of a nested dict of tensors."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def training_phase(torch):
+    """Gate T3: minicpm-2b at full width and depth in fp32, B=1, S=2048,
+    ``TRAIN_STEPS`` steps through the user's entry point
+    ``launch.train.main``: every loss and grad norm finite, and the flash
+    forward and backward kernels launched once per layer per step, nothing
+    else.  Then, from a fresh state, one step through ``make_train_step``'s
+    own gradient pass: every gradient leaf finite and not all zero, and
+    wq, wk, wv nonzero in every layer; and two more steps timed in their
+    forward, backward and optimizer parts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import ops_for
+    from repro_torch.optim import (adamw_update, clip_by_global_norm,
+                                   cosine_schedule)
+    from repro_torch.tree import leaves
+    from repro_torch.train import make_train_step, train_state_init
+
+    cfg = get_config("minicpm-2b")
+    L, B, S = cfg.n_layers, 1, 2048
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = launch_train.main(["--arch", "minicpm-2b", "--steps",
+                              str(TRAIN_STEPS), "--batch", str(B), "--seq",
+                              str(S)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = want["flash_attention_bwd"] = L * TRAIN_STEPS
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    require(len(hist) == TRAIN_STEPS, f"{len(hist)} steps recorded")
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"T3: non-finite loss or grad norm {losses} {norms}")
+    require(counts == want, f"T3 launches {counts} != {want}")
+    release(torch, "the extra training step")
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state = train_state_init(cfg, gen, "cuda")
+    n_params = sum(p.numel() for p in leaves(state.params))
+    step = make_train_step(cfg, cosine_schedule(3e-3, 0, TRAIN_STEPS))
+    data = make_batch_iterator(cfg.vocab, S, B, seed=1)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(data).items()}
+    _, _, grads = step.grads_of(state.params, batch)
+    bad = {}
+    for name, g in named_leaves(grads):
+        # a layer-stacked leaf must be nonzero in every layer
+        alive = (g.flatten(1).ne(0).any(1) if name.startswith("blocks.")
+                 else g.ne(0).any()[None])
+        finite = bool(torch.isfinite(g).all())
+        if not finite or not bool(alive.all()):
+            bad[name] = {"finite": finite,
+                         "zero_layers": (~alive).nonzero().flatten().tolist()}
+    del grads
+    require(not bad, f"T3: gradient leaves not finite or all zero: {bad}")
+
+    model = ops_for(cfg)
+    timings = []
+    for _ in range(2):
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(state.params, cfg, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = torch.autograd.grad(loss, leaves(state.params))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        g, _ = clip_by_global_norm(list(g), 1.0)
+        state = state._replace(opt=adamw_update(
+            state.params, g, state.opt, 3e-3))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del g, loss
+        timings.append({"forward_ms": (t1 - t0) * 1e3,
+                        "backward_ms": (t2 - t1) * 1e3,
+                        "optimizer_ms": (t3 - t2) * 1e3,
+                        "step_ms": (t3 - t0) * 1e3,
+                        "tokens_per_s": B * S / (t3 - t0)})
+    emit({"phase": "training", "model": cfg.name, "n_layers": L,
+          "d_model": cfg.d_model, "params": n_params, "batch": B, "seq": S,
+          "steps": TRAIN_STEPS, "loss": losses, "grad_norm": norms,
+          "launches": counts, "main_wall_s": wall_s,
+          "main_tokens_per_s": TRAIN_STEPS * B * S / wall_s,
+          "max_memory_allocated_bytes": peak,
+          "timed_steps": timings})
+    del state
+    return counts, timings[-1]
 
 
 def handoff_by_layer(torch, cfg, params, tokens):
@@ -1629,12 +2005,15 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB
     paged = paged_phase(torch, flush, logs.get("paged_attention", ""))
     flash = flash_phase(torch, flush, logs.get("flash_attention", ""))
+    flash_bwd = flash_backward_phase(torch, flush,
+                                     logs.get("flash_attention_bwd", ""))
     gating_phase(torch, flush)
     router = router_gating_phase(torch, flush, logs.get("moe_gating", ""))
     mlstm = mlstm_phase(torch, flush, logs.get("mlstm_scan", ""))
     del flush
     small_parity_phase(torch)
     xlstm_parity_phase(torch)
+    train_parity_phase(torch)
     counts = serving_phase(torch, "granite-8b", "serving")
     # granite-8b's 33 GB, qwen2-moe-a2.7b's 57 GB and xlstm-1.3b's 23 GB do
     # not fit one card together: everything of one model must be gone
@@ -1643,6 +2022,8 @@ def main() -> int:
     moe_counts = serving_phase(torch, "qwen2-moe-a2.7b", "serving_moe")
     release(torch, "serving_xlstm")
     xlstm_counts = serving_xlstm_phase(torch)
+    release(torch, "training")
+    train_counts, _ = training_phase(torch)
 
     emit({"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -1661,6 +2042,18 @@ def main() -> int:
          "ms": flash["kernel_ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         # no TPU kernel: the JAX gradient of attention is the jnp VJP
+         "replaces": "src/repro/models/chunked.py:86",
+         "launches": train_counts["flash_attention_bwd"],
+         # at the main path's shape: minicpm-2b, B=1, H=36, S=2048, hd=64
+         "max_abs_err": flash_bwd["max_abs_err_minicpm"],
+         "ms": flash_bwd["minicpm"]["kernel_ms"],
+         "plain_ms": flash_bwd["minicpm"]["plain_ms"],
+         "bound_ms": flash_bwd["minicpm"]["bound_ms"],
+         "bound_by": flash_bwd["minicpm"]["bound_by"],
+         "library_ms": flash_bwd["minicpm"]["library_ms"]},
         {"name": "moe_gating", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gating.cu",
          "entry": "router_gating_cuda (kernels/moe_gating.py)",

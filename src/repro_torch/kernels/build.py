@@ -24,8 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: src/repro_torch/kernels/build.py -> the repo root
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
-SOURCES: Tuple[str, ...] = ("paged_attention", "flash_attention", "moe_gating",
-                            "mlstm_scan")
+SOURCES: Tuple[str, ...] = ("paged_attention", "flash_attention",
+                            "flash_attention_bwd", "moe_gating", "mlstm_scan")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC")

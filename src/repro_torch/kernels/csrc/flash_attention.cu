@@ -60,10 +60,13 @@
 //   * Ragged Sq / Sk are masked in the kernel: no block-multiple rule.
 //   * The output goes through the warp's own Q rows in shared memory, so
 //     it is written as 16-byte stores.
+//   * For training, the row's logsumexp lse = m + log l (natural units, the
+//     JAX VJP's residual) goes to an fp32 (B, H, Sq) buffer when one is
+//     given; serving passes none, and the output is the same to the bit.
 //
 // Layouts: q (B, H, Sq, hd), k/v (B, H, Sk, hd), out like q, each with
 // arbitrary (b, h, s) strides in elements and a dense head dim; k/v are
-// head-repeated.  Causal query i sits at position Sk - Sq + i.
+// head-repeated; lse dense.  Causal query i sits at position Sk - Sq + i.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +83,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPV = 8;                  // output tiles per pass of P.V
 constexpr int kPad = 4;                 // floats of padding per shared row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of one block: the Q tile and two stages of K and V tiles.
 template <int HD>
@@ -188,9 +192,10 @@ __device__ __forceinline__ void load_kv(float* Ks, float* Vs, const T* kbase,
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-                 Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                 int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Sk, Strides qs,
+                 Strides ks, Strides vs, Strides os, int causal, int window,
+                 float scale) {
   constexpr int LD = Smem<HD>::LD;
   constexpr int C4 = HD / 4;
   constexpr int NT = kBK / 8;       // 8-key tiles of a key tile
@@ -399,6 +404,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     inv[r] = 1.f / fmaxf(sum, 1e-30f);
+    // m is in log2 units; lse = m ln 2 + log l, in natural units
+    const int qi = q0 + wrow + g + 8 * r;
+    if (lse != nullptr && t == 0 && qi < Sq)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qi] =
+          m[r] * kLn2 + logf(fmaxf(sum, 1e-30f));
   }
   float* ow = Qs + (wrow + g) * LD + 2 * t;
 #pragma unroll
@@ -419,10 +429,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-void launch_hd(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-               Strides os, int causal, int window, float scale,
-               cudaStream_t s) {
+void launch_hd(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int H, int Sq, int Sk, Strides qs,
+               Strides ks, Strides vs, Strides os, int causal, int window,
+               float scale, cudaStream_t s) {
   constexpr int smem = Smem<HD>::kBytes;
   // above 48 KB only after this; a refusal shows in cudaGetLastError()
   cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
@@ -430,22 +440,23 @@ void launch_hd(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<T, HD><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, qs, ks, vs, os,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, qs, ks, vs,
+      os, causal, window, scale);
 }
 
 template <typename T>
 bool launch(int hd, const void* q, const void* k, const void* v, void* out,
-            int B, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-            Strides os, int causal, int window, float scale, cudaStream_t s) {
+            float* lse, int B, int H, int Sq, int Sk, Strides qs, Strides ks,
+            Strides vs, Strides os, int causal, int window, float scale,
+            cudaStream_t s) {
   switch (hd) {
     case 64:
-      launch_hd<T, 64>(q, k, v, out, B, H, Sq, Sk, qs, ks, vs, os, causal,
-                       window, scale, s);
+      launch_hd<T, 64>(q, k, v, out, lse, B, H, Sq, Sk, qs, ks, vs, os,
+                       causal, window, scale, s);
       return true;
     case 128:
-      launch_hd<T, 128>(q, k, v, out, B, H, Sq, Sk, qs, ks, vs, os, causal,
-                        window, scale, s);
+      launch_hd<T, 128>(q, k, v, out, lse, B, H, Sq, Sk, qs, ks, vs, os,
+                        causal, window, scale, s);
       return true;
     default:
       return false;
@@ -455,10 +466,12 @@ bool launch(int hd, const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// head dim with no instantiation).
+// head dim with no instantiation).  ``lse`` is a dense fp32 (B, H, Sq)
+// buffer for the row logsumexps, or null.
 extern "C" int repro_flash_attention_fwd(
-    int is_bf16, const void* q, const void* k, const void* v, void* out, int B,
-    int H, int Sq, int Sk, int hd, long long q_sb, long long q_sh,
+    int is_bf16, const void* q, const void* k, const void* v, void* out,
+    void* lse, int B, int H, int Sq, int Sk, int hd, long long q_sb,
+    long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, float scale,
@@ -466,11 +479,12 @@ extern "C" int repro_flash_attention_fwd(
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   const bool ok =
-      is_bf16 ? launch<__nv_bfloat16>(hd, q, k, v, out, B, H, Sq, Sk, qs, ks,
-                                      vs, os, causal, window, scale, s)
-              : launch<float>(hd, q, k, v, out, B, H, Sq, Sk, qs, ks, vs, os,
-                              causal, window, scale, s);
+      is_bf16 ? launch<__nv_bfloat16>(hd, q, k, v, out, lse_f, B, H, Sq, Sk,
+                                      qs, ks, vs, os, causal, window, scale, s)
+              : launch<float>(hd, q, k, v, out, lse_f, B, H, Sq, Sk, qs, ks,
+                              vs, os, causal, window, scale, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

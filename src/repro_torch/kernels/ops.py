@@ -4,6 +4,12 @@ A CUDA tensor launches the hand-written kernel, and a failed build or
 launch raises; a CPU tensor takes the plain PyTorch version.  There is no
 fallback from one to the other.
 
+Under autograd (grad enabled and an input that requires grad),
+:func:`flash_attention` goes through ``models.chunked.FlashAttention``,
+whose backward is the flash backward kernel (its plain version on the
+CPU).  The other entries have no backward yet: they raise there, on both
+devices, rather than hand back a tensor that cuts the graph.
+
 Each CUDA wrapper counts its launches; :func:`launch_counts` reads the
 counts and :func:`reset_launch_counts` sets them to 0, so a caller can
 show which kernels a run went through.
@@ -30,10 +36,25 @@ def _route(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for device {t.device}")
 
 
+def _under_grad(*ts: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _refuse_grad(name: str, *ts: Optional[torch.Tensor]) -> None:
+    if _under_grad(*ts):
+        raise RuntimeError(
+            f"{name} has no backward yet: call it under torch.no_grad() or "
+            "with inputs that do not require grad")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q, k, v: (B, S, H, hd) (kv already head-repeated) -> (B, S, H, hd)."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if _under_grad(q, k, v):
+        from ..models.chunked import FlashAttention
+        return FlashAttention.apply(qt, kt, vt, causal, window).transpose(1, 2)
     fn = _flash.flash_attention_cuda if _route(q) else _flash.flash_attention_plain
     return fn(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
 
@@ -51,6 +72,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     block_tables (M,NP) int32; lengths (M,) cached tokens; k/v_new
     (M,Hk,hd) the current token (attended at position ``lengths``).
     """
+    _refuse_grad("paged_decode_attention", q, k_pool, v_pool, k_new, v_new,
+                 k_scales, v_scales)
     fn = (_paged.paged_attention_cuda if _route(q)
           else _paged.paged_attention_plain)
     return fn(q, k_pool, v_pool, block_tables, lengths, k_new, v_new,
@@ -60,6 +83,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 def moe_gating(logits: torch.Tensor, k: int,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits (T, E) -> (weights (T,k), experts (T,k) int32, probs (T,E))."""
+    _refuse_grad("moe_gating", logits)
     fn = _gating.moe_gating_cuda if _route(logits) else _gating.moe_gating_plain
     return fn(logits, k)
 
@@ -68,6 +92,7 @@ def router_gating(x: torch.Tensor, router: torch.Tensor, k: int,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (T, D) @ router (D, E), then the gating: (weights (T,k), experts
     (T,k) int32, probs (T,E)).  Counts under ``moe_gating``."""
+    _refuse_grad("router_gating", x, router)
     fn = (_gating.router_gating_cuda if _route(x)
           else _gating.router_gating_plain)
     return fn(x, router, k)
@@ -80,6 +105,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Chunkwise mLSTM over q, k (pre-scaled by 1/sqrt(hd)), v (B,H,S,hd)
     and log gates (B,H,S) from the state C0 (B,H,hd,hd), n0 (B,H,hd),
     m0 (B,H).  Returns (h (B,H,S,hd), C_T, n_T, m_T)."""
+    _refuse_grad("mlstm_scan", q, k, v, log_i, log_f, C0, n0, m0)
     fn = _mlstm.mlstm_scan_cuda if _route(q) else _mlstm.mlstm_scan_plain
     return fn(q, k, v, log_i, log_f, C0, n0, m0)
 
@@ -87,6 +113,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def launch_counts() -> Dict[str, int]:
     return {"paged_decode_attention": _paged.launches,
             "flash_attention": _flash.launches,
+            "flash_attention_bwd": _flash.bwd_launches,
             "moe_gating": _gating.launches,
             "mlstm_scan": _mlstm.launches}
 
@@ -94,5 +121,6 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     _paged.launches = 0
     _flash.launches = 0
+    _flash.bwd_launches = 0
     _gating.launches = 0
     _mlstm.launches = 0

@@ -1,0 +1,78 @@
+"""Training launcher.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
+        --steps 4 --batch 1 --seq 2048
+
+Runs on the card (``--device cuda``, the default) with the full config;
+``--reduced`` trains the smoke-test width (``--layers``, ``--d-model``,
+``--vocab``) instead, and ``--device cpu`` runs the plain versions on the
+CPU.  Without a card and without ``--device cpu`` it raises.  The port
+trains dense configs (minicpm-2b, granite-8b, ...).  Checkpoints
+(``--save``) wait for the port's copy of the checkpoint format.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+
+def main(argv: Optional[List[str]] = None) -> List[Dict[str, float]]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the reduced (smoke) variant")
+    ap.add_argument("--d-model", type=int, default=256)
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--vocab", type=int, default=2048)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--schedule", choices=["cosine", "wsd"], default="cosine")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import resolve_device
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.optim import cosine_schedule, wsd_schedule
+    from repro_torch.tree import leaves
+    from repro_torch.train import Trainer, train_state_init
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced(n_layers=args.layers, d_model=args.d_model,
+                          vocab=args.vocab)
+    if args.schedule == "wsd":
+        sched = wsd_schedule(args.lr, args.steps // 10, 7 * args.steps // 10,
+                             2 * args.steps // 10)
+    else:
+        sched = cosine_schedule(args.lr, args.steps // 10, args.steps)
+
+    data = make_batch_iterator(cfg.vocab, args.seq, args.batch,
+                               seed=args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = train_state_init(cfg, gen, device)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    print(f"[train] arch={cfg.name} family={cfg.arch} "
+          f"params={n_params / 1e6:.1f}M device={device}")
+    trainer = Trainer(cfg, state, sched, data, microbatches=args.microbatches)
+    t0 = time.perf_counter()
+    hist = trainer.run(args.steps, log_every=max(args.steps // 20, 1))
+    dt = time.perf_counter() - t0
+    toks = args.steps * args.batch * args.seq
+    print(f"[train] {args.steps} steps in {dt:.1f}s "
+          f"({toks / dt:.0f} tok/s) loss {hist[0]['loss']:.3f} -> "
+          f"{hist[-1]['loss']:.3f}")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

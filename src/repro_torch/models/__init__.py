@@ -1,9 +1,10 @@
 """Model zoo of the port: ``ops_for(cfg)`` returns the entry points that
-serving programs against.  The dense, MoE and xLSTM (ssm) decoders are
-ported so far.
+serving and training program against.  The dense, MoE and xLSTM (ssm)
+decoders are ported so far.
 
     init(cfg, generator, device, dtype) -> params
     forward(params, cfg, batch)         -> (logits, aux)
+    loss_fn(params, cfg, batch)         -> (loss, metrics)
     init_cache(cfg, B, max_len, dtype, device) -> cache
     prefill(params, cfg, batch, c)      -> (logits, cache)
     decode_step(params, cfg, tok, c)    -> (logits, cache)
@@ -20,6 +21,7 @@ from .config import ModelConfig
 class ModelOps:
     init: Callable
     forward: Callable
+    loss_fn: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
@@ -28,6 +30,7 @@ class ModelOps:
 _DECODER_OPS = ModelOps(
     init=decoder.init_params,
     forward=decoder.forward,
+    loss_fn=decoder.loss_fn,
     init_cache=decoder.init_cache,
     prefill=decoder.prefill,
     decode_step=decoder.decode_step,

@@ -4,7 +4,9 @@ Plain functions over explicit parameter dicts of tensors, keeping the JAX
 package's ``(in, out)`` weight layout (``x @ W``) and its numerics: fp32
 upcast in the norm and in RoPE, RoPE on the two halves of the head dim,
 the additive ``-1e9`` mask, and streaming (flash) attention from
-``FLASH_MIN_SEQ`` tokens on, through the port's kernel dispatcher.
+``FLASH_MIN_SEQ`` tokens on, through the port's kernel dispatcher (and,
+under autograd, through the flash backward).  float64 inputs stay float64
+throughout, so a float64 run is a reference for the float32 one.
 
 Difference from the JAX package: a KV cache passed to
 :func:`run_attention` is updated in place (JAX returns a new array), which
@@ -66,13 +68,15 @@ def rope_freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) int."""
+    """x: (B, S, H, hd); positions: (B, S) int.  The angles are fp32, as in
+    JAX; the rotation runs in float32 (float64 for float64 x)."""
     hd = x.shape[-1]
+    up = torch.promote_types(x.dtype, torch.float32)
     freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
-    angles = positions[..., None].float() * freqs            # (B,S,hd/2)
+    angles = (positions[..., None].float() * freqs).to(up)   # (B,S,hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(up), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -108,11 +112,12 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Reference attention: q (B,S,H,hd), k/v (B,T,H,hd), mask additive,
     broadcastable to (B,H,S,T)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    up = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bshd,bthd->bhst", q.to(up), k.to(up)) * scale
     if mask is not None:
         logits = logits + mask
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    out = torch.einsum("bhst,bthd->bshd", probs, v.to(up))
     return out.to(q.dtype)
 
 

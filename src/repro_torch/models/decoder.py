@@ -7,7 +7,8 @@ a list of per-layer dicts, each holding an ``mlstm`` and an ``slstm``
 tree (layer ``l`` runs its sLSTM when ``l % slstm_every == slstm_every -
 1``, on the global layer index).  Three entry points:
 
-  * ``forward``      — full-sequence logits (teacher forcing)
+  * ``forward``      — full-sequence logits (teacher forcing), and
+    ``loss_fn`` / ``cross_entropy`` on them for training
   * ``prefill``      — full sequence, filling a decode cache
   * ``decode_step``  — one token against the cache
 
@@ -22,9 +23,10 @@ dicts that each call replaces.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from .common import (Params, dense_init, init_attention, init_mlp, rms_norm,
@@ -50,6 +52,19 @@ def layer_params(tree: Any, j: int) -> Any:
     if isinstance(tree, dict):
         return {k: layer_params(v, j) for k, v in tree.items()}
     return tree[j]
+
+
+def unbind_layers(tree: Any) -> List[Any]:
+    """Every layer's slice of a layer-stacked parameter tree, from one
+    ``torch.unbind`` per leaf.  Under autograd its backward is one stack,
+    so the gradients come out stacked; slicing ``tree[j]`` per layer would
+    instead add each slice's gradient into a zero tensor the size of the
+    whole leaf, once per layer."""
+    if isinstance(tree, dict):
+        per_key = {k: unbind_layers(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[j] for k, v in per_key.items()} for j in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 # ======================================================================
@@ -176,16 +191,48 @@ def _head(params: Params) -> torch.Tensor:
 
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits.  Returns (logits (B,S,V), aux_loss)."""
+    """Full-sequence logits.  Returns (logits (B,S,V), aux_loss).  With
+    ``cfg.remat`` each dense or MoE block is recomputed in the backward
+    instead of keeping its activations, as JAX's ``jax.checkpoint``."""
     require_ported(cfg)
     x, positions = _embed(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for j in range(cfg.n_layers):
-        x, _, a = run_block(cfg, layer_params(params["blocks"], j), x,
-                            positions, layer_idx=j)
+    if cfg.arch == "ssm":
+        blocks, remat = params["blocks"], False
+    else:
+        blocks, remat = unbind_layers(params["blocks"]), cfg.remat
+    for j, bp in enumerate(blocks):
+        if remat:
+            x, _, a = checkpoint(run_block, cfg, bp, x, positions, None, None,
+                                 j, use_reentrant=False)
+        else:
+            x, _, a = run_block(cfg, bp, x, positions, layer_idx=j)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(params), aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token cross entropy over the labels >= 0 (the others are
+    ignored), and the number of those labels (at least 1).  The label
+    logit is gathered and the normalizer is a logsumexp: no one-hot and no
+    full log-softmax.  float32 (float64 for float64 logits)."""
+    valid = labels >= 0
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    lse = torch.logsumexp(lf, dim=-1)
+    label_logit = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])
+    ll = label_logit[..., 0] - lse
+    n_valid = torch.clamp_min(valid.sum(), 1)
+    return -torch.sum(ll * valid) / n_valid, n_valid
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (ce + aux, {"ce", "aux", "n_tokens"})."""
+    logits, aux = forward(params, cfg, batch)
+    ce, n_valid = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "aux": aux, "n_tokens": n_valid}
 
 
 # ======================================================================

@@ -4,7 +4,8 @@ The JAX package's tree, flattened to numpy (nested dicts of arrays, with
 non-ssm ``blocks`` stacked on a leading layer axis), has exactly the
 port's keys, shapes and ``(in, out)`` layout, so crossing over is a copy.
 Values are bit-exact both ways.  bfloat16 arrays (``ml_dtypes``) cross
-as their raw 16-bit patterns.
+as their raw 16-bit patterns.  A train state (parameters, AdamW moments
+and step) crosses the same way.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
+from .optim.adamw import AdamWState
+from .tree import leaves, tree_map
+from .train.step import TrainState
 
 
 def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -36,17 +40,33 @@ def params_from_numpy(tree: Any, device: Union[str, torch.device] = "cuda") -> A
     """Nested dicts/lists of numpy arrays -> the same structure of tensors
     on ``device``."""
     dev = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, dev) for v in tree)
-    return _to_tensor(np.asarray(tree), dev)
+    return tree_map(lambda a: _to_tensor(np.asarray(a), dev), tree)
 
 
 def params_to_numpy(tree: Any) -> Any:
     """The inverse of :func:`params_from_numpy` (host copies)."""
-    if isinstance(tree, dict):
-        return {k: params_to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_to_numpy(v) for v in tree)
-    return _to_numpy(tree)
+    return tree_map(_to_numpy, tree)
+
+
+def train_state_from_numpy(state: Any,
+                           device: Union[str, torch.device] = "cuda") -> Any:
+    """A train state with numpy leaves (the JAX package's ``TrainState``
+    mapped through ``np.asarray``: ``params`` and ``opt.step``, ``opt.mu``,
+    ``opt.nu``) -> the port's ``TrainState`` on ``device``, bit-exact, its
+    parameters marked as requiring grad."""
+    params = params_from_numpy(state.params, device)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt = AdamWState(step=int(np.asarray(state.opt.step)),
+                     mu=params_from_numpy(state.opt.mu, device),
+                     nu=params_from_numpy(state.opt.nu, device))
+    return TrainState(params=params, opt=opt)
+
+
+def train_state_to_numpy(state: Any) -> Any:
+    """The inverse of :func:`train_state_from_numpy`: a ``TrainState`` of
+    host copies, its step an ``np.int32`` as JAX's."""
+    opt = AdamWState(step=np.int32(state.opt.step),
+                     mu=params_to_numpy(state.opt.mu),
+                     nu=params_to_numpy(state.opt.nu))
+    return TrainState(params=params_to_numpy(state.params), opt=opt)

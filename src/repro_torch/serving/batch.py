@@ -58,7 +58,7 @@ from ..core.simnet import Sim
 from ..kernels.ops import paged_decode_attention
 from ..models.common import apply_rope, rms_norm, run_mlp
 from ..models.moe import run_moe
-from .sharded import leaves
+from ..tree import leaves
 
 __all__ = ["BatchEngine", "KVPool", "SlotState", "PEER_FLOPS", "PEER_BW"]
 

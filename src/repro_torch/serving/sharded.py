@@ -16,6 +16,7 @@ import torch
 from ..models import decoder
 from ..models.common import rms_norm
 from ..models.config import ModelConfig
+from ..tree import leaves
 
 
 def plan_shards(cfg: ModelConfig, n_shards: int) -> List[Tuple[int, int]]:
@@ -58,15 +59,6 @@ def split_params(cfg: ModelConfig, params: Any,
                 sub["embed_out"] = params["embed"]
         shards.append(sub)
     return shards
-
-
-def leaves(tree: Any) -> List[torch.Tensor]:
-    """Every tensor of a tree of dicts and lists, in order."""
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in leaves(v)]
-    return [tree]
 
 
 class ShardModule:

@@ -1,0 +1,4 @@
+from .step import TrainState, make_train_step, train_state_init
+from .trainer import Trainer
+
+__all__ = ["TrainState", "make_train_step", "train_state_init", "Trainer"]

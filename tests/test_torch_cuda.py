@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.mlstm_scan import (KERNEL_CHUNK, mlstm_prep_cuda,
                                             mlstm_prep_plain, mlstm_scan_cuda,
@@ -197,6 +199,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="one card"):
         flash_attention_cuda(*_flash_inputs(1, 2, 16, 16, 64, torch.float32,
                                             "cpu"))
+
+
+def test_flash_bwd_cuda_wrapper_refuses_cpu_tensors():
+    q, k, v = _flash_inputs(1, 2, 16, 16, 64, torch.float32, "cpu")
+    lse = torch.zeros(1, 2, 16)
+    with pytest.raises(ValueError, match="one card"):
+        flash_attention_bwd_cuda(q, k, v, q, lse, q)
 
 
 def test_gating_on_the_cpu_takes_the_plain_version():
@@ -630,3 +639,192 @@ def test_mlstm_cuda_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         ops.mlstm_scan(*args[:5], args[5][:, :, :32].contiguous(), *args[6:])
     assert ops.launch_counts()["mlstm_scan"] == before
+
+
+# ------------------------------------------------------- flash backward (T1)
+
+#: T1 (``ROADMAP.md``, "Parity discipline"): (B, H, Sq, Sk, causal, window,
+#: hd): minicpm-2b's and granite-8b's causal 2048, windows 128 and 1,
+#: ragged 2050, B=2 at 97, non-causal, and Sq < Sk with a window
+FLASH_BWD_CASES = [(1, 36, 2048, 2048, True, 0, 64),
+                   (1, 32, 2048, 2048, True, 0, 128),
+                   (1, 36, 2048, 2048, True, 128, 64),
+                   (1, 8, 2048, 2048, True, 128, 128),
+                   (1, 8, 300, 300, True, 1, 64),
+                   (1, 36, 2050, 2050, True, 0, 64),
+                   (1, 8, 2050, 2050, True, 0, 128),
+                   (2, 8, 97, 97, True, 0, 64),
+                   (1, 32, 128, 2048, False, 0, 128),
+                   (1, 8, 65, 97, False, 0, 64),
+                   (2, 4, 97, 300, True, 17, 128)]
+
+
+def _flash_bwd_inputs(B, H, Sq, Sk, hd, causal, window, device, seed=0):
+    """q, k, v, out, lse, dO on ``device`` in the model's layout ((B, S, H,
+    hd) viewed as (B, H, S, hd)); out and lse are the plain forward in
+    float64, rounded to fp32, so every backward input is an fp32 value."""
+    q, k, v = _flash_inputs(B, H, Sq, Sk, hd, torch.float32, device, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn((B, Sq, H, hd), generator=g).to(device).transpose(1, 2)
+    out64, lse64 = flash_attention_plain(q.double(), k.double(), v.double(),
+                                         causal=causal, window=window,
+                                         return_lse=True)
+    out = torch.empty_like(q).copy_(out64)
+    return q, k, v, out, lse64.float().contiguous(), do
+
+
+def flash_bwd_t1(args, causal, window):
+    """Per gradient, max|g_kernel - g64| over its T1 bound 2 max|g32 - g64|
+    + 1e-6 max|g64| (g64, g32: the plain backward in float64 and fp32)."""
+    g64 = flash_attention_bwd_plain(*(a.double() for a in args),
+                                    causal=causal, window=window)
+    g32 = flash_attention_bwd_plain(*args, causal=causal, window=window)
+    gk = flash_attention_bwd_cuda(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    res = {}
+    for name, a, b, c in zip(("dq", "dk", "dv"), gk, g32, g64):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all()), name
+        bound = (2 * (b.double() - c).abs().max().item()
+                 + 1e-6 * c.abs().max().item())
+        res[name] = (a.double() - c).abs().max().item() / bound
+    return res, gk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,causal,window,hd", FLASH_BWD_CASES)
+def test_flash_bwd_cuda_holds_t1(cuda, B, H, Sq, Sk, causal, window, hd):
+    args = _flash_bwd_inputs(B, H, Sq, Sk, hd, causal, window, cuda,
+                             seed=Sq + window)
+    ratios, got = flash_bwd_t1(args, causal, window)
+    assert max(ratios.values()) <= 1.0, ratios
+    again = flash_attention_bwd_cuda(*args, causal=causal, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the forward's lse against the plain version's
+    q, k, v = args[:3]
+    _, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    _, want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    torch.cuda.synchronize()
+    assert (lse - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,causal,window,H,hd", [
+    (2048, 2048, True, 0, 36, 64), (2050, 2050, True, 128, 8, 128),
+    (97, 97, True, 1, 4, 64), (128, 2048, False, 0, 4, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cuda_lse_leaves_the_output_unchanged(cuda, Sq, Sk, causal,
+                                                    window, H, hd, dtype):
+    q, k, v = _flash_inputs(1, H, Sq, Sk, hd, dtype, cuda, seed=Sq)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out2, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    assert lse.dtype == torch.float32 and lse.shape == (1, H, Sq)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_cuda_refuses_what_it_cannot_take(cuda):
+    args = _flash_bwd_inputs(1, 2, 64, 64, 64, True, 0, cuda)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="float32 only"):
+        flash_attention_bwd_cuda(*(a.bfloat16() for a in args[:4]), args[4],
+                                 args[5].bfloat16())
+    with pytest.raises(ValueError, match="head dim must be one of"):
+        flash_attention_bwd_cuda(*(a[..., :32] for a in args[:4]), args[4],
+                                 args[5][..., :32])
+    assert ops.launch_counts()["flash_attention_bwd"] == before
+
+
+@pytest.mark.gpu
+def test_flash_function_on_the_card_launches_both_kernels(cuda):
+    """Under grad ``ops.flash_attention`` runs the forward kernel with lse,
+    and the backward kernel, once each; its gradients are the kernel's."""
+    q, k, v, out, lse, do = _flash_bwd_inputs(1, 4, 300, 300, 64, True, 0,
+                                              cuda)
+    leaves_ = [t.transpose(1, 2).detach().requires_grad_(True)
+               for t in (q, k, v)]
+    before = ops.launch_counts()
+    y = ops.flash_attention(*leaves_, causal=True)
+    y.backward(do.transpose(1, 2))
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    qt, kt, vt = (t.detach().transpose(1, 2) for t in leaves_)
+    y2, lse2 = flash_attention_cuda(qt, kt, vt, return_lse=True)
+    want = flash_attention_bwd_cuda(qt, kt, vt, y2, lse2, do)
+    for t, w in zip(leaves_, want):
+        assert torch.equal(t.grad.transpose(1, 2), w)
+
+
+# ------------------------------------------------ train step, card vs CPU (T2)
+
+def _t2_runs(mb, steps=3):
+    """A reduced minicpm-2b (L=2, d=256, H=4, hd=64, vocab 256), B=2,
+    S=2048, from one state on the card in fp32 and on the CPU in fp32 and
+    float64: step 1's gradient leaves, then each step's loss and grad
+    norm, and the launch counts of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.optim import constant_schedule
+    from repro_torch.tree import leaves, tree_map
+    from repro_torch.params import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.train import make_train_step, train_state_init
+
+    cfg = get_config("minicpm-2b").reduced(n_layers=2, d_model=256, vocab=256)
+    assert cfg.hd == 64
+    base = train_state_to_numpy(
+        train_state_init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    data = make_batch_iterator(cfg.vocab, 2048, 2, seed=0)
+    batches = [next(data) for _ in range(steps)]
+    runs = {}
+    for name, dev, dt in (("card32", "cuda", np.float32),
+                          ("cpu32", "cpu", np.float32),
+                          ("cpu64", "cpu", np.float64)):
+        cast = lambda t: tree_map(lambda a: a.astype(dt), t)
+        state = train_state_from_numpy(base._replace(
+            params=cast(base.params), opt=type(base.opt)(
+                base.opt.step, cast(base.opt.mu), cast(base.opt.nu))), dev)
+        step = make_train_step(cfg, constant_schedule(1e-3), microbatches=mb)
+        before = ops.launch_counts()
+        _, _, grads = step.grads_of(state.params, {
+            k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()})
+        grads = [g.double().cpu() for g in leaves(grads)]
+        hist = []
+        for b in batches:
+            state, m = step(state, b)
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        after = ops.launch_counts()
+        runs[name] = (grads, hist, {k: after[k] - before[k] for k in after})
+    return cfg, runs
+
+
+def t2_report(runs):
+    """Ratios to T2's bound max(1e-4, 2 max|cpu32 - cpu64|): the gradient
+    leaves of step 1 (each over its leaf's largest |cpu64| entry), and each
+    step's loss and grad norm."""
+    card, c32, c64 = (runs[k] for k in ("card32", "cpu32", "cpu64"))
+    grads = []
+    for a, b, c in zip(card[0], c32[0], c64[0]):
+        scale = c.abs().max().item()
+        err = (a - c).abs().max().item() / scale
+        bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
+        grads.append(err / bound)
+    steps = [[abs(a - c) / max(1e-4, 2 * abs(b - c)) for a, b, c in
+              zip(x, y, z)] for x, y, z in zip(card[1], c32[1], c64[1])]
+    return {"grads": grads, "steps": steps}
+
+
+@pytest.mark.gpu
+def test_train_step_card_matches_cpu_t2(cuda):
+    cfg, runs = _t2_runs(mb=1)
+    rep = t2_report(runs)
+    assert max(rep["grads"]) <= 1.0, rep
+    assert max(max(s) for s in rep["steps"]) <= 1.0, rep
+    L = cfg.n_layers
+    assert runs["card32"][2]["flash_attention"] == 4 * L
+    assert runs["card32"][2]["flash_attention_bwd"] == 4 * L
+    assert not any(runs["cpu32"][2].values())
+    assert not any(runs["cpu64"][2].values())

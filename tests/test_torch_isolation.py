@@ -40,7 +40,11 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 20
     assert {PORT / "kernels" / "mlstm_scan.py", PORT / "models" / "ssm.py",
-            PORT / "kernels" / "moe_gating.py"} <= set(files)
+            PORT / "kernels" / "moe_gating.py", PORT / "models" / "chunked.py",
+            PORT / "optim" / "adamw.py", PORT / "optim" / "clip.py",
+            PORT / "optim" / "schedules.py", PORT / "data" / "pipeline.py",
+            PORT / "train" / "step.py", PORT / "train" / "trainer.py",
+            PORT / "launch" / "train.py"} <= set(files)
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -56,7 +60,10 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert len(names) > 15, names\n"
-        "assert {'repro_torch.kernels.mlstm_scan', 'repro_torch.models.ssm'}"
+        "assert {'repro_torch.kernels.mlstm_scan', 'repro_torch.models.ssm',"
+        " 'repro_torch.models.chunked', 'repro_torch.optim.adamw',"
+        " 'repro_torch.data.pipeline', 'repro_torch.train.step',"
+        " 'repro_torch.train.trainer', 'repro_torch.launch.train'}"
         " <= set(names), names\n"
         "assert not bad, bad\n"
         "import torch\n"
