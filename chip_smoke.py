@@ -89,7 +89,15 @@ Phases, each printed as one JSON object per line:
    S=2048 through ``repro_torch.launch.train.main``, every layer's
    attention through the flash forward and backward kernels, under gate
    T3; its peak memory, and a step's forward, backward and optimizer
-   ms.
+   ms;
+11. checkpoint — gate C1 on two small trees held on the card; then,
+   everything before released, minicpm-2b trained at full width for 2
+   steps, saved with ``save_local`` into a temporary directory, loaded
+   back onto the card and served, under gates C2-C5; the file's bytes,
+   the save split into the encode, the copy from the card and the write,
+   the load into the read, the decode and the copy to the card, GB/s of
+   each, the parts-root-CID seconds, peak host RSS per stage, peak card
+   memory, the root CID and the card's name and power limit.
 
 The mlstm phase (after moe_gating) holds the mLSTM kernel to gate G1 at
 xlstm-1.3b's widths and reports its two kernels' ptxas registers, spills
@@ -135,7 +143,38 @@ The training path's bounds, fixed before this script's first run of them:
   gradient pass, every gradient leaf finite and not all zero, each
   layer-stacked leaf (wq, wk, wv among them) nonzero in every layer.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+The checkpoint format's bounds, fixed before this script's first run of
+them (every one exact):
+
+* C1, golden CIDs of card-held trees: a reduced minicpm-2b
+  (``T2_REDUCED``: L=2, d=256, vocab 256) filled by
+  ``golden_numpy_tree`` in fp32, and again cast to bf16 (round to nearest
+  even), each crossed to the card with ``params_from_numpy``: the root
+  CID of ``build_tree_dag(params_to_parts(tree))``, the sha256 of
+  ``params_to_bytes(tree)`` and (fp32) of ``params_to_bytes(tree,
+  quant="int8_block")`` equal ``CKPT_GOLDEN``, which the JAX package
+  computed on the CPU.
+* C2, full width: minicpm-2b, fp32, B=1, S=2048, 2 steps through the
+  ``Trainer`` that ``launch.train.run`` builds; saved by the
+  ``save_local`` call ``--save`` makes; the optimizer moments freed;
+  ``load_local(path, like=<a fresh init on the card>)``: every leaf on
+  the card, of the trained leaf's dtype and shape, ``torch.equal`` to
+  it; at least one leaf differs from the fresh init.
+* C3: ``params_to_bytes(loaded)`` hashes to the file's sha256, and the
+  loaded tree's parts root CID equals the trained tree's.
+* C4: the trained tree and then the loaded tree served through the
+  fused ``BatchEngine`` (4 sessions, prompts 2048, 300, 64 and 12
+  tokens, 16 greedy steps, page 32): the same greedy tokens, every
+  logits row equal to the bit, the same launch counts.
+* C5: ``launch.serve.main(["--arch", "minicpm-2b", "--load", path,
+  "--batch", "2", "--prompt-len", "64", "--gen", "8"])`` on the card
+  gives the tokens of a ``GenerationEngine`` over the trained tree on
+  the batch ``launch.serve`` draws from its seed.
+
+The temporary files are deleted when the phase ends, whatever happens.
+
+Then a ``done`` line with the run's seconds, a ``{"kernels": [...]}``
+line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Without a card, or without ``src/repro_torch`` beside this
 script, it exits non-zero and prints no result.
@@ -1688,12 +1727,12 @@ def serving_xlstm_phase(torch):
 TRAIN_STEPS = 4
 
 
-def named_leaves(tree, prefix=""):
-    """(dotted path, leaf) of a nested dict of tensors."""
+def named_leaves(tree, prefix="", sep="."):
+    """(path, leaf) of a nested dict of tensors, keys joined by ``sep``."""
     for k in sorted(tree):
         v = tree[k]
         if isinstance(v, dict):
-            yield from named_leaves(v, f"{prefix}{k}.")
+            yield from named_leaves(v, f"{prefix}{k}{sep}", sep)
         else:
             yield f"{prefix}{k}", v
 
@@ -1971,6 +2010,296 @@ def router_gating_ms(prof, cfg, M: int, steps: int) -> dict:
                                for n, c, _ in gating]}
 
 
+#: gate C1's constants, computed by the JAX package on the CPU from
+#: ``golden_numpy_tree`` and re-derived on every run by
+#: ``tests/test_torch_checkpoint.py::test_golden_constants``, which also
+#: holds this copy equal to its own
+CKPT_GOLDEN = {
+    "fp32": {"parts_root": "70db1520b27b65798924892f066c23ee9c4d9728804a1d4e"
+                           "44fc154ad711491884",
+             "blob_sha256": "4dd0ec5af6514685fb3fb9c5565999fe54acd8b20afb6139"
+                            "060d4b2e9727c1ad",
+             "int8_blob_sha256": "9136f2b3285f236bced0e48175e53177e10497d81495"
+                                 "0cde9806d673cd42738e"},
+    "bf16": {"parts_root": "7020d28a37aedb25764dc77dca6d4d1f66e1bdd8ddb46fc3"
+                           "833c32e6fb53591470",
+             "blob_sha256": "d35af68294655ba3e28fc5b65224fdb31360bc9098a097cc"
+                            "a6b8e9e143ad2b76"},
+}
+CKPT_GOLDEN_SEED = 24
+CKPT_TRAIN_STEPS = 2
+CKPT_PROMPTS = [2048, 300, 64, 12]
+CKPT_STEPS = 16
+
+
+def golden_numpy_tree(like, seed=CKPT_GOLDEN_SEED):
+    """Gate C1's tree: ``like``'s structure (nested dicts of tensors or
+    arrays), every leaf uniform in [-1, 1) as float32, drawn from one
+    legacy ``RandomState`` (whose stream numpy keeps fixed across
+    versions) in the order of the leaves' ``/``-joined paths, the order
+    the checkpoint format sorts them in."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    vals = {name: rs.uniform(-1.0, 1.0, tuple(leaf.shape)).astype(np.float32)
+            for name, leaf in sorted(named_leaves(like, sep="/"))}
+
+    def build(tree, prefix):
+        return {k: build(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else vals[f"{prefix}{k}"] for k, v in tree.items()}
+    return build(like, "")
+
+
+def cid_hex(cid) -> str:
+    return f"{cid.codec:02x}{cid.digest.hex()}"
+
+
+def checkpoint_digests(tree, int8: bool) -> dict:
+    """Gate C1's readings of one tree: the parts' v2 root CID, the sha256
+    of the LCK2 blob and, with ``int8``, of the LCK3 one."""
+    import hashlib
+
+    from repro_torch.checkpoint import params_to_bytes, params_to_parts
+    from repro_torch.core.cid import build_tree_dag
+
+    out = {"parts_root": cid_hex(build_tree_dag(params_to_parts(tree)).root),
+           "blob_sha256": hashlib.sha256(params_to_bytes(tree)).hexdigest()}
+    if int8:
+        out["int8_blob_sha256"] = hashlib.sha256(
+            params_to_bytes(tree, quant="int8_block")).hexdigest()
+    return out
+
+
+def golden_trees(torch, device):
+    """Gate C1's fp32 tree and its bf16 cast (round to nearest even) on
+    ``device``: a reduced minicpm-2b (``T2_REDUCED``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+    from repro_torch.params import params_from_numpy
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("minicpm-2b").reduced(**T2_REDUCED)
+    like = decoder.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tree32 = params_from_numpy(golden_numpy_tree(like), device)
+    return {"fp32": tree32,
+            "bf16": tree_map(lambda t: t.to(torch.bfloat16), tree32)}
+
+
+def _rss_bytes() -> int:
+    """The process's resident set now, in bytes (Linux)."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _file_sha256(path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(64 * 2 ** 20):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _rss_stage(stages, name, fn):
+    """Run ``fn`` as a named stage: its seconds, and the resident set
+    before it and at its peak, sampled every 2 ms on a thread (the copies,
+    writes and hashes it waits on release the interpreter lock)."""
+    import threading
+
+    before = _rss_bytes()
+    peak = [before]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.002):
+            peak[0] = max(peak[0], _rss_bytes())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    finally:
+        seconds = time.perf_counter() - t0
+        done.set()
+        sampler.join()
+    stages[name] = {"s": seconds, "rss_before_bytes": before,
+                    "peak_rss_bytes": max(peak[0], _rss_bytes())}
+    return out
+
+
+def checkpoint_phase(torch):
+    """Gates C1-C5: the checkpoint format on the card, then minicpm-2b
+    trained at full width, saved, loaded back and served."""
+    import os
+    import resource
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import (load_local, params_to_bytes,
+                                        params_to_parts, save_local)
+    from repro_torch.configs import get_config
+    from repro_torch.core.cid import build_tree_dag
+    from repro_torch.core.simnet import Sim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import decoder
+    from repro_torch.serving import (BatchEngine, GenerationEngine,
+                                     ShardModule, split_params)
+
+    t_phase = time.perf_counter()
+    # C1: golden CIDs of card-held trees
+    golden = {k: checkpoint_digests(t, int8=k == "fp32")
+              for k, t in golden_trees(torch, "cuda").items()}
+    require(golden == CKPT_GOLDEN, f"C1: {golden} != {CKPT_GOLDEN}")
+
+    cfg = get_config("minicpm-2b")
+    L, S = cfg.n_layers, 2048
+    stages = {}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="ckpt-") as tmp:
+        path = os.path.join(tmp, "minicpm-2b.lck")
+        trainer = launch_train.run([
+            "--arch", "minicpm-2b", "--steps", str(CKPT_TRAIN_STEPS),
+            "--batch", "1", "--seq", str(S)])
+        hist = trainer.history
+        require(len(hist) == CKPT_TRAIN_STEPS and all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in hist), f"C2: training history {hist}")
+        train_peak = torch.cuda.max_memory_allocated()
+        trained = trainer.state.params
+        torch.cuda.synchronize()
+
+        # C2: save as --save does, free the moments, load into a fresh init
+        save_t = {}
+        n_written = _rss_stage(stages, "save", lambda: save_local(
+            path, trained, timings=save_t))
+        file_bytes = os.path.getsize(path)
+        require(n_written == file_bytes, f"C2: wrote {n_written} bytes, "
+                f"the file holds {file_bytes}")
+        trainer.state = trainer.state._replace(opt=None)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the trainer's own start (launch.train's seed 0)
+        fresh = decoder.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        load_t = {}
+        loaded = _rss_stage(stages, "load", lambda: load_local(
+            path, like=fresh, timings=load_t))
+        want = dict(named_leaves(trained))
+        init = dict(named_leaves(fresh))
+        require(sorted(want) == sorted(dict(named_leaves(loaded))),
+                "C2: the loaded tree has other leaves")
+        moved = 0
+        for name, b in named_leaves(loaded):
+            a = want[name]
+            require(b.device.type == "cuda" and b.dtype == a.dtype
+                    and b.shape == a.shape, f"C2: {name} came back as "
+                    f"{b.dtype} {tuple(b.shape)} on {b.device}")
+            require(torch.equal(a.detach(), b), f"C2: {name} differs")
+            moved += not torch.equal(init[name], b)
+        require(moved > 0, "C2: every loaded leaf equals the fresh init")
+        del fresh, init, want
+
+        # C3: the canonical bytes and the parts root are stable
+        file_sha = _rss_stage(stages, "file_sha256",
+                              lambda: _file_sha256(path))
+
+        def blob_sha():
+            import hashlib
+            return hashlib.sha256(params_to_bytes(loaded)).hexdigest()
+        loaded_sha = _rss_stage(stages, "bytes_sha256", blob_sha)
+        require(loaded_sha == file_sha, f"C3: params_to_bytes(loaded) hashes "
+                f"to {loaded_sha}, the file to {file_sha}")
+        roots = [_rss_stage(stages, f"parts_root_{k}", lambda t=t: cid_hex(
+            build_tree_dag(params_to_parts(t)).root))
+            for k, t in (("trained", trained), ("loaded", loaded))]
+        require(roots[0] == roots[1], f"C3: parts roots {roots}")
+
+        # C4: both trees serve the same tokens through the fused engine
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+                   for n in CKPT_PROMPTS]
+        runs = []
+        for tree in (trained, loaded):
+            module = ShardModule(cfg, split_params(cfg, tree, [(0, L)])[0],
+                                 (0, L), is_first=True, is_last=True)
+            sim = Sim(seed=0)
+            eng = BatchEngine(module, sim, n_slots=len(prompts),
+                              page_size=32, device="cuda")
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                run = _drive(eng, sim, prompts, CKPT_STEPS)
+            runs.append((run, ops.launch_counts()))
+            del eng, module
+        (ra, ca), (rb, cb) = runs
+        require(ca == cb, f"C4: launches {ca} != {cb}")
+        require(ca["flash_attention"] > 0
+                and ca["paged_decode_attention"] > 0, f"C4: launches {ca}")
+        require(all(np.array_equal(x, y) for x, y in zip(ra[4], rb[4])),
+                "C4: the greedy tokens differ")
+        require(np.array_equal(ra[0], rb[0]) and all(
+            np.array_equal(x, y) for x, y in zip(ra[2], rb[2])),
+            "C4: the logits differ")
+        c4_tokens = np.stack(ra[4]).T.tolist()      # (session, step)
+        del runs, ra, rb, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # C5: the user's entry point serves the checkpoint
+        B, P, G = 2, 64, 8
+        t0 = time.perf_counter()
+        served = launch_serve.main([
+            "--arch", "minicpm-2b", "--load", path, "--batch", str(B),
+            "--prompt-len", str(P), "--gen", str(G)])
+        serve_s = time.perf_counter() - t0
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab, size=(B, P),
+                                                   dtype=np.int32)
+        with torch.no_grad():
+            want, _ = GenerationEngine(cfg, trained, max_len=P + G + 1,
+                                       device="cuda").generate(
+                                           {"tokens": tokens}, G)
+        require(np.array_equal(served, want),
+                f"C5: served {served.tolist()} != {want.tolist()}")
+        # reported, not gated: what the untrained start serves on the batch
+        start = decoder.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        start_tokens, _ = GenerationEngine(
+            cfg, start, max_len=P + G + 1, device="cuda").generate(
+                {"tokens": tokens}, G)
+        del start
+        card_peak = torch.cuda.max_memory_allocated()
+        del trained
+    gb = file_bytes / 1e9
+    emit({"phase": "checkpoint", "phase_s": time.perf_counter() - t_phase,
+          "model": cfg.name, "n_layers": L,
+          "train_steps": CKPT_TRAIN_STEPS, "loss": [h["loss"] for h in hist],
+          "golden": golden, "file_bytes": file_bytes,
+          "root_cid": roots[0], "file_sha256": file_sha,
+          "save_s": stages["save"]["s"], "save_split_s": save_t,
+          "load_s": stages["load"]["s"], "load_split_s": load_t,
+          "save_gb_per_s": {k: gb / v for k, v in save_t.items() if v > 0},
+          "load_gb_per_s": {k: gb / v for k, v in load_t.items() if v > 0},
+          "parts_root_s": {k: stages[f"parts_root_{k}"]["s"]
+                           for k in ("trained", "loaded")},
+          "stages": stages, "serve_main_s": serve_s,
+          "c4_launches": ca, "c4_tokens": c4_tokens,
+          "c5_tokens": served.tolist(),
+          "c5_untrained_tokens": start_tokens.tolist(),
+          "peak_rss_bytes_process": resource.getrusage(
+              resource.RUSAGE_SELF).ru_maxrss * 1024,
+          "max_memory_allocated_bytes_training": train_peak,
+          "max_memory_allocated_bytes_after": card_peak,
+          "nvidia_smi": nvidia_smi()})
+
+
 def release(torch, before: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1987,6 +2316,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     sys.path.insert(0, str(SRC))
     import repro_torch  # noqa: F401  (turns TF32 off)
     from repro_torch.kernels import build
@@ -2024,6 +2354,9 @@ def main() -> int:
     xlstm_counts = serving_xlstm_phase(torch)
     release(torch, "training")
     train_counts, _ = training_phase(torch)
+    release(torch, "checkpoint")
+    checkpoint_phase(torch)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_main})
 
     emit({"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",

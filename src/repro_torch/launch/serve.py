@@ -9,7 +9,9 @@ MoE ones (qwen2-moe-a2.7b, dbrx-132b) and xlstm-1.3b.
 Runs on the card (``--device cuda``, the default) with the full config;
 ``--reduced`` serves the smoke-test width instead, and ``--device cpu``
 runs the plain versions on the CPU.  Without a card and without
-``--device cpu`` it raises.
+``--device cpu`` it raises.  ``--load PATH`` serves a checkpoint in the
+JAX package's format (from either package's ``save_local``), loaded into
+the tree of a fresh init on the chosen device.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import numpy as np
 import torch
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def main(argv: Optional[List[str]] = None) -> np.ndarray:
+    """Serve from the command line; returns the generated tokens (B,
+    gen)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
@@ -31,6 +35,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--load", default=None, help="checkpoint to serve")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -46,6 +51,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ops = ops_for(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = ops.init(cfg, gen, device)
+    if args.load:
+        from repro_torch.checkpoint import load_local
+        params = load_local(args.load, like=params)
 
     B, S = args.batch, args.prompt_len
     rng = np.random.default_rng(args.seed)
@@ -61,6 +69,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(f"[serve] {stats['generated']} tokens in {dt:.2f}s "
           f"({stats['generated'] / dt:.1f} tok/s incl. prefill)")
     print(f"[serve] sample continuation: {out[0][:16].tolist()}")
+    return out
 
 
 if __name__ == "__main__":

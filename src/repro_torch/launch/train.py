@@ -7,20 +7,30 @@ Runs on the card (``--device cuda``, the default) with the full config;
 ``--reduced`` trains the smoke-test width (``--layers``, ``--d-model``,
 ``--vocab``) instead, and ``--device cpu`` runs the plain versions on the
 CPU.  Without a card and without ``--device cpu`` it raises.  The port
-trains dense configs (minicpm-2b, granite-8b, ...).  Checkpoints
-(``--save``) wait for the port's copy of the checkpoint format.
+trains dense configs (minicpm-2b, granite-8b, ...).  ``--save PATH``
+writes the trained parameters as a checkpoint in the JAX package's format
+(``repro_torch.checkpoint.save_local``), which either package can load.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
 
 import torch
 
+if TYPE_CHECKING:
+    from repro_torch.train import Trainer
+
 
 def main(argv: Optional[List[str]] = None) -> List[Dict[str, float]]:
+    """Train from the command line; returns the per-step history."""
+    return run(argv).history
+
+
+def run(argv: Optional[List[str]] = None) -> "Trainer":
+    """What :func:`main` runs; returns the trainer, its state trained."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
@@ -36,6 +46,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, float]]:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--save", default=None, help="checkpoint path")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config
@@ -71,7 +82,11 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, float]]:
     print(f"[train] {args.steps} steps in {dt:.1f}s "
           f"({toks / dt:.0f} tok/s) loss {hist[0]['loss']:.3f} -> "
           f"{hist[-1]['loss']:.3f}")
-    return hist
+    if args.save:
+        from repro_torch.checkpoint import save_local
+        n = save_local(args.save, trainer.state.params)
+        print(f"[train] saved {n/1e6:.1f} MB checkpoint to {args.save}")
+    return trainer
 
 
 if __name__ == "__main__":

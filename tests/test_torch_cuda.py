@@ -828,3 +828,59 @@ def test_train_step_card_matches_cpu_t2(cuda):
     assert runs["card32"][2]["flash_attention_bwd"] == 4 * L
     assert not any(runs["cpu32"][2].values())
     assert not any(runs["cpu64"][2].values())
+
+
+# ------------------------------------------------------- checkpoint (C1-C3)
+
+@pytest.mark.gpu
+def test_checkpoint_golden_cids_of_card_held_trees(cuda):
+    """Gate C1: trees held on the card encode to the constants the JAX
+    package computed on the CPU."""
+    import chip_smoke
+
+    for kind, tree in chip_smoke.golden_trees(torch, "cuda").items():
+        assert chip_smoke.checkpoint_digests(
+            tree, int8=kind == "fp32") == chip_smoke.CKPT_GOLDEN[kind], kind
+
+
+@pytest.mark.gpu
+def test_checkpoint_of_a_card_trained_model_round_trips(cuda, tmp_path):
+    """Gates C2 and C3 at T2's width: a reduced minicpm-2b trained on the
+    card by ``launch.train --save`` loads back onto the card bit for bit,
+    and re-encodes to the file's bytes and to the trained tree's parts
+    root."""
+    import hashlib
+
+    import chip_smoke
+    from repro_torch.checkpoint import (load_local, params_to_bytes,
+                                        params_to_parts)
+    from repro_torch.configs import get_config
+    from repro_torch.core.cid import build_tree_dag
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import decoder
+
+    red = chip_smoke.T2_REDUCED
+    path = str(tmp_path / "t2.lck")
+    trainer = launch_train.run([
+        "--arch", "minicpm-2b", "--reduced", "--layers",
+        str(red["n_layers"]), "--d-model", str(red["d_model"]), "--vocab",
+        str(red["vocab"]), "--steps", "2", "--batch", "1", "--seq", "256",
+        "--save", path])
+    trained = trainer.state.params
+    cfg = get_config("minicpm-2b").reduced(**red)
+    fresh = decoder.init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), "cuda")
+    loaded = load_local(path, like=fresh)
+    want = dict(chip_smoke.named_leaves(trained))
+    moved = 0
+    for name, b in chip_smoke.named_leaves(loaded):
+        a = want.pop(name)
+        assert b.is_cuda and b.dtype == a.dtype and b.shape == a.shape, name
+        assert torch.equal(a.detach(), b), name
+        moved += not torch.equal(dict(chip_smoke.named_leaves(fresh))[name], b)
+    assert not want and moved > 0
+    with open(path, "rb") as f:
+        file_sha = hashlib.sha256(f.read()).hexdigest()
+    assert hashlib.sha256(params_to_bytes(loaded)).hexdigest() == file_sha
+    assert build_tree_dag(params_to_parts(loaded)).root == \
+        build_tree_dag(params_to_parts(trained)).root
