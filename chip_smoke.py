@@ -169,7 +169,9 @@ them (every one exact):
 * C5: ``launch.serve.main(["--arch", "minicpm-2b", "--load", path,
   "--batch", "2", "--prompt-len", "64", "--gen", "8"])`` on the card
   gives the tokens of a ``GenerationEngine`` over the trained tree on
-  the batch ``launch.serve`` draws from its seed.
+  the batch ``launch.serve`` draws from its seed, and those differ from
+  the tokens of the untrained start (``launch.serve``'s own init) on
+  that batch, so the gate tells the checkpoint from a fresh init.
 
 The temporary files are deleted when the phase ends, whatever happens.
 
@@ -2266,15 +2268,20 @@ def checkpoint_phase(torch):
             want, _ = GenerationEngine(cfg, trained, max_len=P + G + 1,
                                        device="cuda").generate(
                                            {"tokens": tokens}, G)
-        require(np.array_equal(served, want),
-                f"C5: served {served.tolist()} != {want.tolist()}")
-        # reported, not gated: what the untrained start serves on the batch
+        # the untrained start (launch.serve's own init) on the same batch
         start = decoder.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-        start_tokens, _ = GenerationEngine(
-            cfg, start, max_len=P + G + 1, device="cuda").generate(
-                {"tokens": tokens}, G)
+        with torch.no_grad():
+            start_tokens, _ = GenerationEngine(
+                cfg, start, max_len=P + G + 1, device="cuda").generate(
+                    {"tokens": tokens}, G)
         del start
+        require(np.array_equal(served, want),
+                f"C5: served {served.tolist()} != {want.tolist()}")
+        require(not np.array_equal(start_tokens, want),
+                f"C5: the trained tree and the untrained start both serve "
+                f"{want.tolist()}, so the tokens cannot tell a loaded "
+                "checkpoint from an ignored --load")
         card_peak = torch.cuda.max_memory_allocated()
         del trained
     gb = file_bytes / 1e9

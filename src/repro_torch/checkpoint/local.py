@@ -6,8 +6,9 @@ and spec:
 * flat (default): the canonical ``LCK*`` blob written verbatim.  The blob
   is written entry by entry as :func:`params_to_bytes` would lay it out
   (the index first, then each leaf in index order, copied from its device
-  as it is written), so a save holds at most one leaf's bytes on the host
-  and never the whole blob.
+  and, under ``quant``, quantized as it is written), so a save holds at
+  most one leaf's values and its payload on the host and never the whole
+  blob.
 * chunked (``spec=``): the blob is cut by the given :class:`ChunkSpec`
   into content-addressed blocks stored under ``<path>.blocks/``; the
   checkpoint file itself is a tiny root manifest.  Blocks already present
@@ -15,8 +16,9 @@ and spec:
   blob and its blocks on the host first.
 
 ``timings``, where given, collects the seconds spent in each stage of a
-save (``encode``, ``copy`` from the device, ``write``) or of a load
-(``read``, ``decode``, ``copy`` to the device).
+save (``encode``: the index and any codec; ``copy`` from the device;
+``write``) or of a load (``read``, ``decode``, ``copy`` to the device).
+A chunked save counts its whole blob and blocks under ``encode``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..core.cid import CID, ChunkSpec, build_dag, read_dag
-from .serial import (_decode_blob, _encode_blob, _leaf_bytes, _placed,
+from .serial import (_decode_blob, _encode_blob, _host, _payload, _placed,
                      params_to_bytes)
 
 #: magic of the chunked root-manifest file: points into ``<path>.blocks/``
@@ -64,12 +66,14 @@ def save_local(path: str, params: Any, quant: Optional[str] = None,
         written = len(prefix)
         with open(tmp, "wb") as f:
             f.write(prefix)
-            for piece in body:
-                if not isinstance(piece, bytes):
-                    piece = _leaf_bytes(piece)
-                    t = _lap(timings, "copy", t)
+            for leaf, enc in body:
+                arr = _host(leaf)
+                t = _lap(timings, "copy", t)
+                piece = _payload(arr, enc)
+                t = _lap(timings, "encode", t)
                 f.write(piece)
                 written += len(piece)
+                del arr, piece        # before the next leaf's copy lands
                 t = _lap(timings, "write", t)
         os.replace(tmp, path)
         return written

@@ -3,9 +3,9 @@
 The port's copy of the JAX package's wire format, byte for byte: the same
 tree gives the same parts, the same ``LCK2``/``LCK3`` blobs and therefore
 the same CIDs on a torch peer as on a JAX one, so either can load what the
-other saved or published.  Leaves are torch tensors on any device (numpy
-arrays are taken too); the encoding and the codecs run in numpy on the
-host, as the JAX package runs them.
+other saved or published.  Leaves are torch tensors on any device (a
+numpy tree crosses with ``params_from_numpy`` first); the encoding and the
+codecs run in numpy on the host, as the JAX package runs them.
 
 Deterministic layout (sorted key-paths) so identical params always produce
 identical CIDs.  A leaf's name is its path in the tree, dict keys and list
@@ -47,7 +47,7 @@ from __future__ import annotations
 import json
 import struct
 import warnings
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,9 +75,6 @@ _TORCH_DTYPES: Dict[str, torch.dtype] = {
     "complex64": torch.complex64, "complex128": torch.complex128,
 }
 _WIRE_NAMES = {t: name for name, t in _TORCH_DTYPES.items()}
-
-Leaf = Union[torch.Tensor, np.ndarray]
-
 
 def _safe_pickle_loads(raw: bytes) -> Any:
     """Decode a legacy pickled index/meta: primitives only — no allowlist,
@@ -166,43 +163,31 @@ def _map_with_path(fn: Any, tree: Any, prefix: str = "") -> Any:
     return type(tree)(out)
 
 
-def _sorted_leaves(params: Any) -> List[Tuple[str, Leaf]]:
-    return sorted(((name, leaf if isinstance(leaf, torch.Tensor)
-                    else np.asarray(leaf))
-                   for name, leaf in _flatten_with_path(params)),
-                  key=lambda kv: kv[0])
+def _sorted_leaves(params: Any) -> List[Tuple[str, torch.Tensor]]:
+    named = _flatten_with_path(params)
+    for name, leaf in named:
+        if not isinstance(leaf, torch.Tensor):
+            raise ValueError(f"leaf {name!r} is a {type(leaf).__name__}, "
+                             "not a tensor")
+    return sorted(named, key=lambda kv: kv[0])
 
 
 # ---------------------------------------------------------------- host side
 
-def _wire_dtype(leaf: Leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
-        if leaf.dtype not in _WIRE_NAMES:
-            raise ValueError(f"no wire format for dtype {leaf.dtype}")
-        return _WIRE_NAMES[leaf.dtype]
-    return str(leaf.dtype)
+def _wire_dtype(leaf: torch.Tensor) -> str:
+    if leaf.dtype not in _WIRE_NAMES:
+        raise ValueError(f"no wire format for dtype {leaf.dtype}")
+    return _WIRE_NAMES[leaf.dtype]
 
 
-def _size(leaf: Leaf) -> int:
-    return leaf.numel() if isinstance(leaf, torch.Tensor) else leaf.size
-
-
-def _host(leaf: Leaf) -> np.ndarray:
+def _host(leaf: torch.Tensor) -> np.ndarray:
     """A leaf's values on the host in C order, in its storage dtype (a
-    16-bit integer view for bfloat16).  A tensor is detached and copied
+    16-bit integer view for bfloat16).  The tensor is detached and copied
     from its device once; a CPU one may be returned as a view."""
-    if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
-        if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
-        return t.contiguous().cpu().numpy()
-    arr = np.ascontiguousarray(leaf)
-    return arr.view(np.int16) if arr.dtype.name == _BF16 else arr
-
-
-def _leaf_bytes(leaf: Leaf) -> np.ndarray:
-    """A leaf's raw wire bytes as a flat uint8 array (one host copy)."""
-    return _host(leaf).reshape(-1).view(np.uint8)
+    t = leaf.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.contiguous().cpu().numpy()
 
 
 def _tensor(arr: np.ndarray, name: str, shape: Tuple[int, ...]) -> torch.Tensor:
@@ -341,14 +326,30 @@ def _decode_sparse_leaf(raw: bytes, shape: Tuple[int, ...],
 _LEAF_CODECS = ("int8_block", "topk")
 
 
-def _encode_leaf(name: str, leaf: Leaf, quant: Optional[str],
-                 ) -> Tuple[Optional[bytes], Optional[Dict[str, Any]]]:
-    """A quantized leaf's payload and codec descriptor, or ``(None,
-    None)`` for a leaf that ships raw."""
-    if quant == "int8_block" and _quantizable(name, _size(leaf)):
-        return (_quant_int8_block(_host(leaf)),
-                {"codec": "int8_block", "block": _QUANT_BLOCK})
-    return None, None
+def _leaf_codec(name: str, leaf: torch.Tensor,
+                quant: Optional[str]) -> Optional[Dict[str, Any]]:
+    """The codec descriptor a leaf of wire dtype ``name`` ships under,
+    or None for a leaf that ships raw."""
+    if quant == "int8_block" and _quantizable(name, leaf.numel()):
+        return {"codec": "int8_block", "block": _QUANT_BLOCK}
+    return None
+
+
+def _payload_size(name: str, leaf: torch.Tensor,
+                  enc: Optional[Dict[str, Any]]) -> int:
+    """The bytes of :func:`_payload`'s result, from the shape alone."""
+    n = leaf.numel()
+    if enc is None:
+        return n * _storage(name).itemsize
+    return n + 8 * _quant_blocks(n, _QUANT_BLOCK)
+
+
+def _payload(arr: np.ndarray, enc: Optional[Dict[str, Any]]) -> Any:
+    """A leaf's wire payload from its host values (:func:`_host`): its
+    raw bytes as a flat uint8 view, or the codec's bytes."""
+    if enc is None:
+        return arr.reshape(-1).view(np.uint8)
+    return _quant_int8_block(arr)
 
 
 def _decode_leaf(raw: bytes, name: str, shape: Tuple[int, ...],
@@ -368,28 +369,27 @@ def _decode_leaf(raw: bytes, name: str, shape: Tuple[int, ...],
 # ---------------------------------------------------------------- flat blob
 
 def _encode_blob(params: Any, quant: Optional[str] = None,
-                 ) -> Tuple[bytes, List[Union[bytes, Leaf]]]:
-    """A blob's prefix (magic, index) and its body in order: each entry's
-    payload where the codec made one, else the leaf, whose raw bytes
-    follow as they are.  The index needs only the leaves' shapes, so
-    the raw leaves are not touched here."""
+                 ) -> Tuple[bytes, List[Tuple[torch.Tensor,
+                                             Optional[Dict[str, Any]]]]]:
+    """A blob's prefix (magic, index) and its body in order, each leaf
+    with its codec descriptor: its payload, :func:`_payload` of its host
+    values, follows the prefix in that order.  The index needs only the
+    leaves' shapes, so no leaf is copied or encoded here."""
     if quant not in _QUANT_MODES:
         raise ValueError(f"unknown quant mode {quant!r}")
     index: List[Any] = []
-    body: List[Union[bytes, Leaf]] = []
+    body: List[Tuple[torch.Tensor, Optional[Dict[str, Any]]]] = []
     off = 0
     for name, leaf in _sorted_leaves(params):
         dtype = _wire_dtype(leaf)
         shape = [int(s) for s in leaf.shape]
-        raw, enc = _encode_leaf(dtype, leaf, quant)
-        size = (_size(leaf) * _storage(dtype).itemsize if raw is None
-                else len(raw))
+        enc = _leaf_codec(dtype, leaf, quant)
         if quant is None:
             index.append((name, dtype, shape, off))
         else:
             index.append((name, dtype, shape, off, enc))
-        body.append(leaf if raw is None else raw)
-        off += size
+        body.append((leaf, enc))
+        off += _payload_size(dtype, leaf, enc)
     head = json.dumps(index, separators=(",", ":")).encode("utf-8")
     magic = _MAGIC2 if quant is None else _MAGIC3
     return magic + struct.pack(">I", len(head)) + head, body
@@ -397,8 +397,8 @@ def _encode_blob(params: Any, quant: Optional[str] = None,
 
 def params_to_bytes(params: Any, quant: Optional[str] = None) -> bytes:
     prefix, body = _encode_blob(params, quant)
-    return b"".join([prefix] + [p if isinstance(p, bytes) else _leaf_bytes(p)
-                                for p in body])
+    return b"".join([prefix] + [_payload(_host(leaf), enc)
+                                for leaf, enc in body])
 
 
 def encode_leaf_meta(dtype: str, shape: Sequence[int],
@@ -455,10 +455,9 @@ def params_to_parts(params: Any,
     parts = []
     for name, leaf in _sorted_leaves(params):
         dtype = _wire_dtype(leaf)
-        raw, enc = _encode_leaf(dtype, leaf, quant)
-        if raw is None:
-            raw = _leaf_bytes(leaf).tobytes()
-        parts.append((name, raw,
+        enc = _leaf_codec(dtype, leaf, quant)
+        raw = _payload(_host(leaf), enc)
+        parts.append((name, raw if isinstance(raw, bytes) else raw.tobytes(),
                       encode_leaf_meta(dtype, [int(s) for s in leaf.shape],
                                        enc)))
     return parts
@@ -474,17 +473,17 @@ def leaf_from_part(raw: bytes, meta: bytes) -> torch.Tensor:
 
 def _restore(flat: Dict[str, torch.Tensor], like: Any, copy: bool) -> Any:
     """``like``'s structure with ``flat``'s leaves, each on the device of
-    ``like``'s leaf at its path (the CPU for a leaf that is not a tensor),
-    in its stored dtype.  ``copy`` forces a copy where the leaf is
-    already there."""
+    ``like``'s leaf (a tensor) at its path, in its stored dtype.  ``copy``
+    forces a copy where the leaf is already there."""
     def put(name: str, leaf: Any) -> torch.Tensor:
+        if not isinstance(leaf, torch.Tensor):
+            raise ValueError(f"like leaf {name!r} is a "
+                             f"{type(leaf).__name__}, not a tensor")
         t = flat[name]
-        is_tensor = isinstance(leaf, torch.Tensor)
-        want = tuple(leaf.shape) if is_tensor else np.shape(leaf)
-        if tuple(t.shape) != want:
+        if t.shape != leaf.shape:
             raise ValueError(f"leaf {name}: stored shape {tuple(t.shape)} "
-                             f"!= {want}")
-        return t.to(leaf.device if is_tensor else "cpu", copy=copy)
+                             f"!= {tuple(leaf.shape)}")
+        return t.to(leaf.device, copy=copy)
     return _map_with_path(put, like)
 
 

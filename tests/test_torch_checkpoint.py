@@ -170,9 +170,10 @@ def test_mixed_leaves_are_byte_identical(quant):
                                                                    quant)
     assert tck.params_to_bytes(tree, quant) == jck.params_to_bytes(jtree,
                                                                    quant)
-    # numpy leaves go through the port's encoder the same way
-    assert tck.params_to_bytes(jtree, quant) == jck.params_to_bytes(jtree,
-                                                                    quant)
+    # a numpy tree crosses with params_from_numpy first: the encoder
+    # takes tensors only
+    with pytest.raises(ValueError, match="not a tensor"):
+        tck.params_to_bytes(jtree, quant)
 
 
 @pytest.mark.parametrize("spec", list(SPECS))
@@ -236,6 +237,26 @@ def test_save_local_files_are_byte_identical(tmp_path, spec):
                               spec=_spec(tcid, spec)) == 37
 
 
+@pytest.mark.parametrize("spec", list(SPECS))
+def test_quantized_save_local_files_are_byte_identical(tmp_path, spec):
+    """An ``int8_block`` save, whose flat layout quantizes each leaf as
+    it is written, lays down the JAX package's files; both read back the
+    same dequantized leaves."""
+    jtree = _mixed_numpy()
+    tree = params_from_numpy(jtree, "cpu")
+    tdir, jdir = tmp_path / "torch", tmp_path / "jax"
+    save_t = {}
+    n_t = tck.save_local(str(tdir / "c.lck"), tree, quant="int8_block",
+                         spec=_spec(tcid, spec), timings=save_t)
+    n_j = jck.save_local(str(jdir / "c.lck"), jtree, quant="int8_block",
+                         spec=_spec(jcid, spec))
+    assert n_t == n_j
+    assert _tree_files(tdir) == _tree_files(jdir)
+    assert "encode" in save_t
+    back = tck.load_local(str(tdir / "c.lck"), like=tree)
+    _assert_same_leaves(back, jck.load_local(str(jdir / "c.lck"), like=jtree))
+
+
 def test_bf16_and_0d_leaves_are_byte_identical(tmp_path):
     """A bf16 tree (``ml_dtypes`` on the JAX side, ``torch.bfloat16`` in the
     port) with a 0-d leaf: parts, blobs, CIDs and files match, bf16 leaves
@@ -272,7 +293,7 @@ def test_named_tuples_and_none_name_leaves_as_jax_does():
     jtree = {"s": Pair(np.ones(3, np.float32), [None, np.zeros(2, np.int64)]),
              "x": 1.5}
     tree = {"s": Pair(torch.ones(3), [None, torch.zeros(2, dtype=torch.int64)]),
-            "x": 1.5}
+            "x": torch.tensor(1.5, dtype=torch.float64)}
     assert [n for n, _, _ in tck.params_to_parts(tree)] == \
         [n for n, _, _ in jck.params_to_parts(jtree)] == \
         ["s/.a", "s/.b/1", "x"]
