@@ -97,7 +97,19 @@ Phases, each printed as one JSON object per line:
    the save split into the encode, the copy from the card and the write,
    the load into the read, the decode and the copy to the card, GB/s of
    each, the parts-root-CID seconds, peak host RSS per stage, peak card
-   memory, the root CID and the card's name and power limit.
+   memory, the root CID and the card's name and power limit;
+12. mesh — the port's Lattica mesh (``core``, ``checkpoint.lattica_ckpt``)
+   on the card's trees, under gates M1-M3: a fleet of four peers and the
+   reference's two bootstrap/relay servers, the publisher behind a
+   port-restricted cone NAT, the fetcher behind a symmetric NAT with
+   random port allocation; gate C1's tree published and fetched sanitized,
+   twice; then the checkpoint phase's trained minicpm-2b published from
+   the card and fetched into a fresh init on it, and both trees served.
+   The line carries the card's name and power limit, each stage's wall
+   seconds and peak host RSS (``params_to_parts``, the DAG build, publish
+   and provide, the fetch, reassembly, the copy to the card), the fetch's
+   simulated seconds, the bytes moved, the connection path and the
+   smoke's seconds so far.
 
 The mlstm phase (after moe_gating) holds the mLSTM kernel to gate G1 at
 xlstm-1.3b's widths and reports its two kernels' ptxas registers, spills
@@ -174,6 +186,33 @@ them (every one exact):
   that batch, so the gate tells the checkpoint from a fresh init.
 
 The temporary files are deleted when the phase ends, whatever happens.
+
+The mesh's bounds, fixed before this script's first run of them (every
+one exact):
+
+* M1, reduced size, golden and sanitized: gate C1's fp32 tree on the
+  card; ``mesh_scenario`` under ``Sim(seed=MESH_SEED, sanitize=True)``:
+  ``publish_checkpoint`` on the publisher, ``fetch_latest`` on the fetcher
+  with ``like`` a fresh init on the card.  The root CID, the trace digest,
+  the number of events traced and the fetch's simulated seconds equal
+  ``MESH_GOLDEN`` (which ``tests/test_torch_mesh.py`` re-derives through
+  the JAX package and the port on the CPU); every fetched leaf is on the
+  card and ``torch.equal`` to the published one; the sanitizer reports no
+  double-settle and no orphan, and the leak audit after both nodes finish
+  (their lineage pins released, the fetcher's connection to the publisher
+  closed) is empty.  Run twice: the same report both times.
+* M2, full width: the same fleet, unsanitized; the trained minicpm-2b
+  published from the card and fetched with ``fetch_checkpoint(...,
+  like=<a fresh init on the card>)``: every leaf on the card, of the
+  trained leaf's dtype and shape, ``torch.equal`` to it; the root
+  manifest's per-leaf entry CIDs those of ``build_tree_dag(params_to_parts(
+  trained))`` (the checkpoint phase's C3 DAG); the leak audit after both
+  nodes finish empty.
+* M3: the trained and then the fetched tree served as C4 serves (prompts
+  2048, 300, 64, 12; 16 greedy steps; page 32): every logits row equal to
+  the bit, the same tokens, the same paged and flash launch counts.
+* M4: every earlier gate passes as written, the ``kernels`` line lists all
+  five kernels, and the last line is the contract's.
 
 Then a ``done`` line with the run's seconds, a ``{"kernels": [...]}``
 line, the ``nvidia-smi`` line, and last
@@ -2108,7 +2147,9 @@ def _file_sha256(path) -> str:
 def _rss_stage(stages, name, fn):
     """Run ``fn`` as a named stage: its seconds, and the resident set
     before it and at its peak, sampled every 2 ms on a thread (the copies,
-    writes and hashes it waits on release the interpreter lock)."""
+    writes and hashes it waits on release the interpreter lock).  A stage
+    run again adds its seconds and keeps its first ``rss_before_bytes``
+    and its highest peak."""
     import threading
 
     before = _rss_bytes()
@@ -2128,9 +2169,56 @@ def _rss_stage(stages, name, fn):
         seconds = time.perf_counter() - t0
         done.set()
         sampler.join()
-    stages[name] = {"s": seconds, "rss_before_bytes": before,
-                    "peak_rss_bytes": max(peak[0], _rss_bytes())}
+    seen = stages.setdefault(name, {"s": 0.0, "rss_before_bytes": before,
+                                    "peak_rss_bytes": 0})
+    seen["s"] += seconds
+    seen["peak_rss_bytes"] = max(seen["peak_rss_bytes"], peak[0],
+                                 _rss_bytes())
     return out
+
+
+def same_served_tokens(torch, cfg, tree_a, tree_b, gate, device="cuda"):
+    """Gates C4 and M3: ``tree_a`` and then ``tree_b`` served through the
+    fused ``BatchEngine`` (prompts ``CKPT_PROMPTS``, ``CKPT_STEPS`` greedy
+    steps, page 32) give bit-equal logits rows, the same greedy tokens and
+    the same launch counts.  Returns the counts and the tokens (session,
+    step)."""
+    import numpy as np
+
+    from repro_torch.core.simnet import Sim
+    from repro_torch.kernels import ops
+    from repro_torch.serving import BatchEngine, ShardModule, split_params
+
+    L = cfg.n_layers
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+               for n in CKPT_PROMPTS]
+    runs = []
+    for tree in (tree_a, tree_b):
+        module = ShardModule(cfg, split_params(cfg, tree, [(0, L)])[0],
+                             (0, L), is_first=True, is_last=True)
+        sim = Sim(seed=0)
+        eng = BatchEngine(module, sim, n_slots=len(prompts),
+                          page_size=32, device=device)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            run = _drive(eng, sim, prompts, CKPT_STEPS)
+        runs.append((run, ops.launch_counts()))
+        del eng, module
+    (ra, ca), (rb, cb) = runs
+    require(ca == cb, f"{gate}: launches {ca} != {cb}")
+    require(ca["flash_attention"] > 0
+            and ca["paged_decode_attention"] > 0, f"{gate}: launches {ca}")
+    require(all(np.array_equal(x, y) for x, y in zip(ra[4], rb[4])),
+            f"{gate}: the greedy tokens differ")
+    require(np.array_equal(ra[0], rb[0]) and all(
+        np.array_equal(x, y) for x, y in zip(ra[2], rb[2])),
+        f"{gate}: the logits differ")
+    tokens = np.stack(ra[4]).T.tolist()
+    del runs, ra, rb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ca, tokens
 
 
 def checkpoint_phase(torch):
@@ -2146,13 +2234,10 @@ def checkpoint_phase(torch):
                                         params_to_parts, save_local)
     from repro_torch.configs import get_config
     from repro_torch.core.cid import build_tree_dag
-    from repro_torch.core.simnet import Sim
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models import decoder
-    from repro_torch.serving import (BatchEngine, GenerationEngine,
-                                     ShardModule, split_params)
+    from repro_torch.serving import GenerationEngine
 
     t_phase = time.perf_counter()
     # C1: golden CIDs of card-held trees
@@ -2220,38 +2305,19 @@ def checkpoint_phase(torch):
         loaded_sha = _rss_stage(stages, "bytes_sha256", blob_sha)
         require(loaded_sha == file_sha, f"C3: params_to_bytes(loaded) hashes "
                 f"to {loaded_sha}, the file to {file_sha}")
-        roots = [_rss_stage(stages, f"parts_root_{k}", lambda t=t: cid_hex(
-            build_tree_dag(params_to_parts(t)).root))
+        def parts_dag(tree):
+            dag = build_tree_dag(params_to_parts(tree))
+            return cid_hex(dag.root), list(dag.entries)
+        # the trained tree's DAG entries go on to the mesh phase (gate M2)
+        (root_a, trained_entries), (root_b, _) = [
+            _rss_stage(stages, f"parts_root_{k}", lambda t=t: parts_dag(t))
             for k, t in (("trained", trained), ("loaded", loaded))]
+        roots = [root_a, root_b]
         require(roots[0] == roots[1], f"C3: parts roots {roots}")
 
         # C4: both trees serve the same tokens through the fused engine
-        rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
-                   for n in CKPT_PROMPTS]
-        runs = []
-        for tree in (trained, loaded):
-            module = ShardModule(cfg, split_params(cfg, tree, [(0, L)])[0],
-                                 (0, L), is_first=True, is_last=True)
-            sim = Sim(seed=0)
-            eng = BatchEngine(module, sim, n_slots=len(prompts),
-                              page_size=32, device="cuda")
-            ops.reset_launch_counts()
-            with torch.no_grad():
-                run = _drive(eng, sim, prompts, CKPT_STEPS)
-            runs.append((run, ops.launch_counts()))
-            del eng, module
-        (ra, ca), (rb, cb) = runs
-        require(ca == cb, f"C4: launches {ca} != {cb}")
-        require(ca["flash_attention"] > 0
-                and ca["paged_decode_attention"] > 0, f"C4: launches {ca}")
-        require(all(np.array_equal(x, y) for x, y in zip(ra[4], rb[4])),
-                "C4: the greedy tokens differ")
-        require(np.array_equal(ra[0], rb[0]) and all(
-            np.array_equal(x, y) for x, y in zip(ra[2], rb[2])),
-            "C4: the logits differ")
-        c4_tokens = np.stack(ra[4]).T.tolist()      # (session, step)
-        del runs, ra, rb, loaded
+        ca, c4_tokens = same_served_tokens(torch, cfg, trained, loaded, "C4")
+        del loaded
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2283,7 +2349,6 @@ def checkpoint_phase(torch):
                 f"{want.tolist()}, so the tokens cannot tell a loaded "
                 "checkpoint from an ignored --load")
         card_peak = torch.cuda.max_memory_allocated()
-        del trained
     gb = file_bytes / 1e9
     emit({"phase": "checkpoint", "phase_s": time.perf_counter() - t_phase,
           "model": cfg.name, "n_layers": L,
@@ -2305,6 +2370,278 @@ def checkpoint_phase(torch):
           "max_memory_allocated_bytes_training": train_peak,
           "max_memory_allocated_bytes_after": card_peak,
           "nvidia_smi": nvidia_smi()})
+    return trained, trained_entries
+
+
+# ------------------------------------------------------------------- mesh
+
+#: gates M1-M3: the fleet's seed, the model fleet's name and the step the
+#: tree is published at
+MESH_SEED = 26
+MESH_FLEET = "minicpm"
+MESH_STEP = CKPT_TRAIN_STEPS
+#: simulated seconds the sanitized run goes on after the fetch, so that
+#: the announcement's gossip and the re-provide settle before the report
+MESH_DRAIN_S = 30.0
+#: gate M1's constants: ``mesh_scenario`` over gate C1's fp32 tree under
+#: ``Sim(seed=MESH_SEED, sanitize=True)``, computed through the JAX
+#: package on the CPU and re-derived there through both packages by
+#: ``tests/test_torch_mesh.py::test_mesh_golden_constants``
+MESH_GOLDEN = {
+    "root": "7025273e2922759931402c9518aeed212a077886d77d096c2dd8f5f143bcf4"
+            "0e12",
+    "trace_digest": "b8fa0ea036450b270ff44d6ee0e4459b4765cf5b7d89d92623009055"
+                    "e6645d78",
+    "events": 3404, "fetch_sim_s": 5.805796943874329}
+
+
+def port_mesh():
+    """The port's mesh modules as ``mesh_scenario`` takes them (the CPU
+    test hands it the JAX package's)."""
+    from types import SimpleNamespace
+
+    from repro_torch.checkpoint import lattica_ckpt
+    from repro_torch.core import cid, fleet, nat, pubsub, simnet, traversal
+
+    return SimpleNamespace(ckpt=lattica_ckpt, cid=cid, fleet=fleet, nat=nat,
+                           pubsub=pubsub, simnet=simnet, traversal=traversal)
+
+
+def fresh_counters(mesh) -> None:
+    """Restart the process-wide sequence counters of ``mesh``'s package as
+    a new process starts them: ``simnet.Host._ip_seq`` and
+    ``nat.NATBox._ip_seq`` number the hosts' and NAT boxes' addresses,
+    ``pubsub._seq`` messages and ``traversal._req_seq`` requests and punch
+    nonces.  Addresses reach the published meta (and so the root CID), and
+    all four reach pickled sizes and so the simulated timings: without
+    this, a scenario's trace would depend on what ran before it in the
+    process."""
+    import itertools
+
+    mesh.simnet.Host._ip_seq = itertools.count(1)
+    mesh.nat.NATBox._ip_seq = itertools.count(1)
+    mesh.pubsub._seq = itertools.count(1)
+    mesh.traversal._req_seq = itertools.count(1)
+
+
+def mesh_nat_kinds(mesh, seed=MESH_SEED):
+    """The four peers' NAT specs: the publisher behind a port-restricted
+    cone NAT, the fetcher behind a symmetric NAT with random port
+    allocation, then two peers drawn from ``DEFAULT_NAT_MIX`` (a symmetric
+    one's allocator from ``DEFAULT_SYM_ALLOC_MIX``) by a seeded
+    generator."""
+    import random
+
+    kind, alloc = mesh.nat.NATKind, mesh.nat.PortAlloc
+    rng = random.Random(seed)
+    kinds, weights = zip(*mesh.fleet.DEFAULT_NAT_MIX)
+    allocs = [(a, d) for a, d, _ in mesh.fleet.DEFAULT_SYM_ALLOC_MIX]
+    alloc_weights = [w for _, _, w in mesh.fleet.DEFAULT_SYM_ALLOC_MIX]
+    specs = [kind.PORT_RESTRICTED, (kind.SYMMETRIC, alloc.RANDOM, 1)]
+    for _ in range(2):
+        k = rng.choices(kinds, weights=weights)[0]
+        specs.append((k, *rng.choices(allocs, weights=alloc_weights)[0])
+                     if k is kind.SYMMETRIC else k)
+    return specs
+
+
+def mesh_scenario(mesh, tree, like, sanitize, by_root=False,
+                  stage=lambda name, fn: fn()):
+    """Gates M1 and M2's run.  From ``fresh_counters``, ``make_fleet(4,
+    ...)`` (the reference's two bootstrap/relay servers,
+    ``mesh_nat_kinds``) under ``Sim(seed=MESH_SEED, sanitize=sanitize)``;
+    the publisher (peer0) publishes ``tree`` as step ``MESH_STEP`` of
+    ``MESH_FLEET``; the fetcher (peer1) syncs its registry with the
+    publisher and fetches the version into
+    ``like``'s structure and devices, by ``fetch_latest`` or, with
+    ``by_root``, by ``fetch_checkpoint`` of the registry's latest root;
+    then both nodes finish: they release their lineage pins and the
+    fetcher closes its connection to the publisher.  The leak audit is
+    taken against the fleet as built, before the finish (``leaks_held``)
+    and after it; a sanitized run goes on ``MESH_DRAIN_S`` simulated
+    seconds before its report.  ``stage(name, fn)`` runs the publish
+    (``"publish"``) and the fetch (``"fetch"``)."""
+    ckpt = mesh.ckpt
+    fresh_counters(mesh)
+    sim = mesh.simnet.Sim(seed=MESH_SEED, sanitize=sanitize)
+    fleet = mesh.fleet.make_fleet(4, nat_kinds=mesh_nat_kinds(mesh),
+                                  sim=sim)
+    pub, fetcher = fleet.peers[0], fleet.peers[1]
+    sim.leak_baseline()
+    punched = [n.transport.stats["punch_ok"] for n in (pub, fetcher)]
+
+    def publish():
+        return (yield from ckpt.publish_checkpoint(pub, tree, MESH_STEP,
+                                                   MESH_FLEET))
+
+    def fetch():
+        yield from fetcher.sync_crdt_with(pub.info())
+        t0 = sim.now
+        if by_root:
+            step, root = ckpt.CheckpointRegistry(fetcher, MESH_FLEET).latest()
+            got = yield from ckpt.fetch_checkpoint(fetcher, root, like,
+                                                   fleet=MESH_FLEET)
+        else:
+            step, got = yield from ckpt.fetch_latest(fetcher, MESH_FLEET,
+                                                     like=like)
+        return step, got, sim.now - t0
+
+    root = stage("publish", lambda: sim.run_process(publish()))
+    step, got, fetch_sim_s = stage("fetch", lambda: sim.run_process(fetch()))
+    conn = fetcher.host.connection_to(pub.host)
+    path = ("none" if conn is None else "relayed" if conn.relayed
+            else "dcutr" if [n.transport.stats["punch_ok"]
+                             for n in (pub, fetcher)] != punched
+            else "direct")
+    entries = [(e.name, cid_hex(e.cid)) for e in
+               mesh.cid.decode_manifest_v2(fetcher.blockstore.peek(root))[0]]
+    # the reference's streaming fetch never closes the fetcher's end of a
+    # channel (``bitswap.py`` ``_fetch_blocks_stream``): the audit taken
+    # here shows each one as a half-open stream while the connection lives
+    leaks_held = sim.leak_audit()
+    # both nodes finish: the lineage pins go, the fetcher hangs up
+    for node in (pub, fetcher):
+        node.unpin_latest(f"ckpt/{MESH_FLEET}")
+    for c in list(fetcher.host._connections.get(pub.host.name, [])):
+        c.close()
+    out = {"root": cid_hex(root), "step": step, "fetched": got,
+           "fetch_sim_s": fetch_sim_s, "entries": entries, "path": path,
+           "bytes_fetched": fetcher.bitswap.stats["bytes_fetched"],
+           "bitswap": {"publisher": dict(pub.bitswap.stats),
+                       "fetcher": dict(fetcher.bitswap.stats)},
+           "nat": [fleet.nat_kind_of(n) for n in fleet.peers],
+           "leaks_held": leaks_held}
+    if sanitize:
+        sim.run(until=sim.now + MESH_DRAIN_S)
+        out["san"] = sim.san_report()
+    out["leaks"] = sim.leak_audit()
+    return out
+
+
+def mesh_golden(run) -> dict:
+    """Gate M1's readings of one ``mesh_scenario`` run."""
+    return {"root": run["root"], "trace_digest": run["san"]["trace_digest"],
+            "events": run["san"]["events"], "fetch_sim_s": run["fetch_sim_s"]}
+
+
+@contextlib.contextmanager
+def staged_calls(stages, module, stage_of):
+    """While open, every call of a function ``module.<attr>`` named in
+    ``stage_of`` (the module's own calls included) runs as the
+    ``_rss_stage`` ``stage_of[attr]`` of ``stages``; the functions are put
+    back on exit."""
+    saved = {attr: getattr(module, attr) for attr in stage_of}
+
+    def timed(fn, name):
+        def call(*args, **kwargs):
+            return _rss_stage(stages, name, lambda: fn(*args, **kwargs))
+        return call
+    try:
+        for attr, name in stage_of.items():
+            setattr(module, attr, timed(saved[attr], name))
+        yield
+    finally:
+        for attr, fn in saved.items():
+            setattr(module, attr, fn)
+
+
+def mesh_phase(torch, trained, trained_entries, t_main, device="cuda",
+               cfg=None):
+    """Gates M1-M3: the port's mesh publishes gate C1's tree from behind a
+    port-restricted cone NAT and fetches it onto the card from behind a
+    symmetric one, sanitized and against golden constants; then the
+    trained minicpm-2b at full width (``cfg``, by default), served
+    afterwards beside the tree it was published from.  ``device`` is the
+    card's; a CPU rehearsal passes ``"cpu"`` and a reduced ``cfg``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+
+    t_phase = time.perf_counter()
+    mesh = port_mesh()
+
+    # M1: reduced size, golden and sanitized, twice
+    small = golden_trees(torch, device)["fp32"]
+    want = dict(named_leaves(small))
+    cfg_small = get_config("minicpm-2b").reduced(**T2_REDUCED)
+    m1 = []
+    for _ in range(2):
+        like = decoder.init_params(
+            cfg_small, torch.Generator(device=device).manual_seed(0), device)
+        run = mesh_scenario(mesh, small, like, sanitize=True)
+        got = dict(named_leaves(run.pop("fetched")))
+        require(sorted(got) == sorted(want), "M1: other leaves came back")
+        for name, b in got.items():
+            require(b.device.type == device and torch.equal(want[name], b),
+                    f"M1: {name} differs or is not on the card")
+        san = run["san"]
+        require(run["step"] == MESH_STEP, f"M1: step {run['step']}")
+        require(not san["double_settles"] and not san["orphans"]
+                and not san["leaks"] and not run["leaks"],
+                f"M1: sanitizer report {san}, leaks {run['leaks']}")
+        require(mesh_golden(run) == MESH_GOLDEN,
+                f"M1: {mesh_golden(run)} != {MESH_GOLDEN}")
+        m1.append(run)
+    require(m1[0]["san"] == m1[1]["san"], "M1: the two runs differ")
+    del small, want, like, got
+
+    # M2: the trained tree at full width, published from the card and
+    # fetched into a fresh init on it
+    cfg = cfg or get_config("minicpm-2b")
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fresh = decoder.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    stages = {}
+    with staged_calls(stages, mesh.ckpt, {
+            "params_to_parts": "params_to_parts",
+            "build_tree_dag": "dag_build", "read_dag": "reassembly",
+            "leaf_from_part": "reassembly",
+            "params_from_parts": "copy_to_card"}):
+        m2 = mesh_scenario(
+            mesh, trained, fresh, sanitize=False, by_root=True,
+            stage=lambda name, fn: _rss_stage(stages, name, fn))
+    # the publish and the fetch hold the stages inside them
+    stages["publish_provide_s"] = stages["publish"]["s"] - sum(
+        stages[k]["s"] for k in ("params_to_parts", "dag_build"))
+    stages["fetch_s"] = stages["fetch"]["s"] - sum(
+        stages[k]["s"] for k in ("reassembly", "copy_to_card"))
+    fetched = m2.pop("fetched")
+    want = dict(named_leaves(trained))
+    got = dict(named_leaves(fetched))
+    require(sorted(got) == sorted(want), "M2: other leaves came back")
+    for name, b in got.items():
+        a = want[name]
+        require(b.device.type == device and b.dtype == a.dtype
+                and b.shape == a.shape, f"M2: {name} came back as {b.dtype} "
+                f"{tuple(b.shape)} on {b.device}")
+        require(torch.equal(a.detach(), b), f"M2: {name} differs")
+    c3 = [(e.name, cid_hex(e.cid)) for e in trained_entries]
+    require(m2["entries"] == c3,
+            "M2: the root manifest's entries are not the trained tree's")
+    require(not m2["leaks"], f"M2: leak audit {m2['leaks']}")
+    del fresh, want, got
+    gc.collect()
+    card_peak = None
+    if on_card:
+        torch.cuda.empty_cache()
+        card_peak = torch.cuda.max_memory_allocated()
+
+    # M3: the fetched tree serves what the trained tree serves
+    m3_counts, m3_tokens = same_served_tokens(torch, cfg, trained, fetched,
+                                              "M3", device)
+    del fetched
+    emit({"phase": "mesh", "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": nvidia_smi(), "model": cfg.name,
+          "m1": [dict(mesh_golden(r), path=r["path"], nat=r["nat"],
+                      bytes_fetched=r["bytes_fetched"]) for r in m1],
+          "root_cid": m2["root"], "nat": m2["nat"], "path": m2["path"],
+          "fetch_sim_s": m2["fetch_sim_s"],
+          "bytes_fetched": m2["bytes_fetched"], "bitswap": m2["bitswap"],
+          "leaks_held": m2["leaks_held"], "stages": stages,
+          "m3_launches": m3_counts, "m3_tokens": m3_tokens,
+          "max_memory_allocated_bytes": card_peak,
+          "smoke_s": time.perf_counter() - t_main})
 
 
 def release(torch, before: str) -> None:
@@ -2362,7 +2699,9 @@ def main() -> int:
     release(torch, "training")
     train_counts, _ = training_phase(torch)
     release(torch, "checkpoint")
-    checkpoint_phase(torch)
+    trained, trained_entries = checkpoint_phase(torch)
+    mesh_phase(torch, trained, trained_entries, t_main)
+    del trained, trained_entries
     emit({"phase": "done", "seconds": time.perf_counter() - t_main})
 
     emit({"kernels": [

@@ -1,7 +1,8 @@
 """Training loop: the JAX package's plain local ``Trainer``.
 
-``LatticaSyncTrainer`` and ``ModelSubscriber`` publish into the Lattica mesh
-and wait for the port's copy of the mesh core.
+``LatticaSyncTrainer`` and ``ModelSubscriber``, which publish into the
+Lattica mesh (``repro_torch.core``, ``checkpoint.lattica_ckpt``), are not
+ported yet.
 """
 
 from __future__ import annotations

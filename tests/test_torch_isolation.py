@@ -20,6 +20,10 @@ from repro_torch.serving import BatchEngine, GenerationEngine, ShardModule
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+#: the mesh modules the port copies from the JAX package's ``core``
+MESH = ("simnet", "peer", "nat", "rpc", "service", "metrics", "dht",
+        "blockstore", "bitswap", "pubsub", "rendezvous", "crdt", "traversal",
+        "node", "fleet", "cid", "safepickle")
 
 
 def _port_files():
@@ -44,7 +48,9 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             PORT / "optim" / "adamw.py", PORT / "optim" / "clip.py",
             PORT / "optim" / "schedules.py", PORT / "data" / "pipeline.py",
             PORT / "train" / "step.py", PORT / "train" / "trainer.py",
-            PORT / "launch" / "train.py"} <= set(files)
+            PORT / "launch" / "train.py",
+            PORT / "checkpoint" / "lattica_ckpt.py"} | {
+            PORT / "core" / f"{m}.py" for m in MESH} <= set(files)
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -63,8 +69,27 @@ def test_importing_every_module_loads_no_jax():
         "assert {'repro_torch.kernels.mlstm_scan', 'repro_torch.models.ssm',"
         " 'repro_torch.models.chunked', 'repro_torch.optim.adamw',"
         " 'repro_torch.data.pipeline', 'repro_torch.train.step',"
-        " 'repro_torch.train.trainer', 'repro_torch.launch.train'}"
+        " 'repro_torch.train.trainer', 'repro_torch.launch.train',"
+        " 'repro_torch.checkpoint.lattica_ckpt'}"
+        f" | {{'repro_torch.core.' + m for m in {MESH!r}}}"
         " <= set(names), names\n"
+        "assert not bad, bad\n"
+        # a payload under the JAX package's wire names decodes into the
+        # port's classes without importing the JAX package
+        "from repro_torch.checkpoint import lattica_ckpt\n"
+        "from repro_torch.core import crdt, dht, peer, safepickle\n"
+        "info = dht.PeerInfo(peer.PeerId.from_name('p'), 'p',"
+        " (peer.Multiaddr('10.0.0.1', 4001),))\n"
+        "orset = crdt.ORSet()\n"
+        "orset.add('e', 'p')\n"
+        "raw = safepickle.wire_dumps({'publisher': info, 'set': orset})\n"
+        "assert b'repro.core.dht' in raw and b'repro_torch' not in raw\n"
+        "back = safepickle.restricted_loads(raw,"
+        " lattica_ckpt._META_ALLOWED | crdt.ReplicatedStore._WIRE_ALLOWED)\n"
+        "assert type(back['publisher']) is dht.PeerInfo\n"
+        "assert type(back['set']) is crdt.ORSet\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
