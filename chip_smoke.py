@@ -109,7 +109,23 @@ Phases, each printed as one JSON object per line:
    seconds and peak host RSS (``params_to_parts``, the DAG build, publish
    and provide, the fetch, reassembly, the copy to the card), the fetch's
    simulated seconds, the bytes moved, the connection path and the
-   smoke's seconds so far.
+   smoke's seconds so far;
+13. fleet — the trained tree released, the port's serving fleet over its
+   mesh on the tree gate M2 fetched onto the card, under gates F1-F3:
+   ``serve_fleet`` of minicpm-2b as 2 pipeline shards (layers 0-19 and
+   20-39) x 2 replicas, 4 slots each, on four of six peers behind NATs,
+   all four engines on the card and sharing the tree's storage, each
+   shard's parameters published as its own checkpoint DAG; a
+   ``ShardClient`` on another peer generates 16 greedy tokens for each of
+   the prompts of C4 at once (F1), and again while the first shard-1
+   replica to hold a slot is stopped (F2).  The line carries each
+   generation's comparison with M3's run (rows compared, rows equal to the
+   bit, the largest relative difference), the client's stats, the
+   simulated seconds of the ``open`` and ``step`` RPCs (median and max),
+   the wall seconds and peak host RSS of ``serve_fleet``, F1 and F2, the
+   card's peak memory, the connection path of every client-shard and
+   shard-shard pair, the launch counts beside their prediction, and the
+   card's name and power limit.
 
 The mlstm phase (after moe_gating) holds the mLSTM kernel to gate G1 at
 xlstm-1.3b's widths and reports its two kernels' ptxas registers, spills
@@ -213,6 +229,38 @@ one exact):
   the bit, the same tokens, the same paged and flash launch counts.
 * M4: every earlier gate passes as written, the ``kernels`` line lists all
   five kernels, and the last line is the contract's.
+
+The serving fleet's bounds, fixed before this script's first run of them.
+The reference is M3's run of the fetched tree: the fused ``BatchEngine``
+alone over the same prompts (2048, 300, 64, 12 tokens), recorded per
+session and step; the fleet's rows are the logits its client samples each
+token from (``ShardClient._sample``), 16 per session:
+
+* F1, full width: every session completes; its tokens equal the
+  reference's greedy tokens, a first difference allowed only where the
+  reference's top two logits lie within ``TIE_GAP`` (1e-5), that session's
+  comparison stopping there; every compared logits row lies within
+  1e-4 * max(1, max|reference row|) of the reference's row.  The rows
+  equal to the bit are counted.
+* F2, a torch-shard kill: the same prompts again on the same fleet; at
+  the first poll (every 10 simulated ms) at which a live shard-1 replica
+  holds a slot, ``stop()`` is called on it.  No session fails,
+  ``sessions_migrated`` grows by at least 1, and tokens and logits are
+  held to the reference under F1's bounds.  No work reaches the stopped
+  server after ``stop()``: its engine's ``admitted``, ``prefills``,
+  ``steps`` and ``step_sessions`` stay as they were (the client's close
+  RPCs for the migrated sessions still reach it, as in the reference).
+* F3, kernels and memory: over the phase, from ``serve_fleet`` to the end
+  of F2, only ``paged_decode_attention`` and ``flash_attention`` launch,
+  as many times as the shards' own work predicts: the sum over the four
+  servers of (layers of the shard) x (fused steps that served at least
+  one session) for paged decode, and (layers of the shard) x (prefills of
+  at least ``FLASH_MIN_SEQ`` = 2048 tokens) for flash, each server's
+  record agreeing with its engine's ``prefills`` and ``steps``; after each
+  generation, once the client has closed its sessions (30 simulated
+  seconds on), every live shard's engine holds 0 slots and 0 pages.
+* F4: every earlier gate passes as written, the ``kernels`` line lists
+  all five kernels, and the last line is the contract's.
 
 Then a ``done`` line with the run's seconds, a ``{"kernels": [...]}``
 line, the ``nvidia-smi`` line, and last
@@ -2177,12 +2225,23 @@ def _rss_stage(stages, name, fn):
     return out
 
 
+def served_prompts(cfg):
+    """Gates C4's, M3's and F1's prompts: ``CKPT_PROMPTS`` tokens each,
+    from a seeded generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+            for n in CKPT_PROMPTS]
+
+
 def same_served_tokens(torch, cfg, tree_a, tree_b, gate, device="cuda"):
     """Gates C4 and M3: ``tree_a`` and then ``tree_b`` served through the
     fused ``BatchEngine`` (prompts ``CKPT_PROMPTS``, ``CKPT_STEPS`` greedy
     steps, page 32) give bit-equal logits rows, the same greedy tokens and
-    the same launch counts.  Returns the counts and the tokens (session,
-    step)."""
+    the same launch counts.  Returns the counts, the tokens (session,
+    step) and ``tree_b``'s run as gate F1's reference: the prefill logits
+    (session, vocab) and each step's logits (session, vocab)."""
     import numpy as np
 
     from repro_torch.core.simnet import Sim
@@ -2190,9 +2249,7 @@ def same_served_tokens(torch, cfg, tree_a, tree_b, gate, device="cuda"):
     from repro_torch.serving import BatchEngine, ShardModule, split_params
 
     L = cfg.n_layers
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
-               for n in CKPT_PROMPTS]
+    prompts = served_prompts(cfg)
     runs = []
     for tree in (tree_a, tree_b):
         module = ShardModule(cfg, split_params(cfg, tree, [(0, L)])[0],
@@ -2215,10 +2272,12 @@ def same_served_tokens(torch, cfg, tree_a, tree_b, gate, device="cuda"):
         np.array_equal(x, y) for x, y in zip(ra[2], rb[2])),
         f"{gate}: the logits differ")
     tokens = np.stack(ra[4]).T.tolist()
+    reference = (rb[0], rb[2])
     del runs, ra, rb
     gc.collect()
-    torch.cuda.empty_cache()
-    return ca, tokens
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return ca, tokens, reference
 
 
 def checkpoint_phase(torch):
@@ -2316,7 +2375,8 @@ def checkpoint_phase(torch):
         require(roots[0] == roots[1], f"C3: parts roots {roots}")
 
         # C4: both trees serve the same tokens through the fused engine
-        ca, c4_tokens = same_served_tokens(torch, cfg, trained, loaded, "C4")
+        ca, c4_tokens, _ = same_served_tokens(torch, cfg, trained, loaded,
+                                              "C4")
         del loaded
         gc.collect()
         torch.cuda.empty_cache()
@@ -2552,7 +2612,9 @@ def mesh_phase(torch, trained, trained_entries, t_main, device="cuda",
     symmetric one, sanitized and against golden constants; then the
     trained minicpm-2b at full width (``cfg``, by default), served
     afterwards beside the tree it was published from.  ``device`` is the
-    card's; a CPU rehearsal passes ``"cpu"`` and a reduced ``cfg``."""
+    card's; a CPU rehearsal passes ``"cpu"`` and a reduced ``cfg``.
+    Returns the fetched tree and M3's run of it (``same_served_tokens``'
+    reference), which the fleet phase serves and holds to."""
     from repro_torch.configs import get_config
     from repro_torch.models import decoder
 
@@ -2628,9 +2690,8 @@ def mesh_phase(torch, trained, trained_entries, t_main, device="cuda",
         card_peak = torch.cuda.max_memory_allocated()
 
     # M3: the fetched tree serves what the trained tree serves
-    m3_counts, m3_tokens = same_served_tokens(torch, cfg, trained, fetched,
-                                              "M3", device)
-    del fetched
+    m3_counts, m3_tokens, reference = same_served_tokens(
+        torch, cfg, trained, fetched, "M3", device)
     emit({"phase": "mesh", "phase_s": time.perf_counter() - t_phase,
           "nvidia_smi": nvidia_smi(), "model": cfg.name,
           "m1": [dict(mesh_golden(r), path=r["path"], nat=r["nat"],
@@ -2642,6 +2703,275 @@ def mesh_phase(torch, trained, trained_entries, t_main, device="cuda",
           "m3_launches": m3_counts, "m3_tokens": m3_tokens,
           "max_memory_allocated_bytes": card_peak,
           "smoke_s": time.perf_counter() - t_main})
+    return fetched, reference
+
+
+# ------------------------------------------------------------------ fleet
+
+#: the serving fleet's seed, its name, and its shape: 2 shards (layers
+#: 0-19 and 20-39 of minicpm-2b) x 2 replicas, 4 slots each
+FLEET_SEED = 27
+FLEET_NAME = "fleet"
+FLEET_SHARDS = 2
+FLEET_REPLICAS = 2
+FLEET_SLOTS = 4
+#: gate F1's logits bound, relative to max(1, max|reference row|)
+FLEET_REL = 1e-4
+#: simulated seconds the fleet runs on after a generation, so that the
+#: client's close RPCs land before the slots and pages are read
+FLEET_DRAIN_S = 30.0
+#: polls of 10 simulated ms for a busy shard-1 replica to stop (gate F2)
+FLEET_POLLS = 3000
+
+
+def fleet_nat_kinds(mesh):
+    """The six peers' NAT specs.  Peers 0-3 serve (``deploy_sharded``
+    places shard i of replica r on peer r * 2 + i): shard 0 behind no NAT
+    and behind a symmetric NAT with random ports, shard 1 behind a full
+    cone and a restricted cone NAT; peer 4 behind a symmetric NAT with
+    sequential ports stays idle; peer 5, the client, behind a
+    port-restricted cone NAT.  The client reaches the symmetric-random
+    replica only through a relay (2 MB/s)."""
+    kind, alloc = mesh.nat.NATKind, mesh.nat.PortAlloc
+    return [None, kind.FULL_CONE, (kind.SYMMETRIC, alloc.RANDOM, 1),
+            kind.RESTRICTED_CONE, (kind.SYMMETRIC, alloc.SEQUENTIAL, 1),
+            kind.PORT_RESTRICTED]
+
+
+def fleet_hold(tokens, rows, reference, n_tokens, gate):
+    """Gate F1's comparison of one generation.  ``tokens[s]`` is session
+    s's generated tokens, ``rows[(s, k)]`` the logits its client sampled
+    token k from.  Tokens equal the reference's greedy tokens; a first
+    difference is allowed only where the reference's top two logits lie
+    within ``TIE_GAP``, and that session's comparison stops there.  Every
+    compared logits row lies within ``FLEET_REL`` * max(1, max|ref row|)
+    of the reference's.  Returns the rows compared, the rows equal to the
+    bit, the largest relative difference and the tie stops."""
+    import numpy as np
+
+    first, steps = reference
+    compared = bit_equal = 0
+    worst, ties = 0.0, []
+    for s, got in enumerate(tokens):
+        require(got is not None, f"{gate}: session {s} failed")
+        require(len(got) == n_tokens and sorted(
+            k for (t, k) in rows if t == s) == list(range(n_tokens)),
+            f"{gate}: session {s} has {len(got)} tokens")
+        for k in range(n_tokens):
+            ref = np.asarray(first[s] if k == 0 else steps[k - 1][s])
+            row = rows[(s, k)]
+            scale = max(1.0, float(np.abs(ref).max()))
+            diff = float(np.abs(row - ref).max()) / scale
+            require(diff <= FLEET_REL, f"{gate}: session {s} token {k}: "
+                    f"logits differ by {diff} of max(1, max|ref|)")
+            worst = max(worst, diff)
+            compared += 1
+            bit_equal += bool(np.array_equal(row, ref))
+            want = int(np.argmax(ref))
+            if int(got[k]) != want:
+                top = np.sort(ref)[-2:]
+                require(float(top[1] - top[0]) <= TIE_GAP,
+                        f"{gate}: session {s} token {k}: {int(got[k])} != "
+                        f"{want} with a gap of {float(top[1] - top[0])}")
+                ties.append((s, k))
+                break
+    return {"rows": compared, "bit_equal_rows": bit_equal,
+            "max_rel_diff": worst, "tie_stops": ties}
+
+
+def fleet_phase(torch, tree, reference, t_main, device="cuda", cfg=None):
+    """Gates F1-F3: the port's serving fleet over the port's mesh, at full
+    width (``cfg``: minicpm-2b by default) on ``tree``, the tree gate M2
+    fetched onto the card; ``reference`` is M3's run of it
+    (``same_served_tokens``).  ``serve_fleet`` of 2 shards x 2 replicas, 4 slots each,
+    on four of six peers behind NATs (``fleet_nat_kinds``), all on the
+    card and sharing the tree's storage; a ``ShardClient`` on the sixth
+    generates ``CKPT_STEPS`` greedy tokens for each of ``served_prompts``
+    at once (F1), then again while a busy shard-1 replica is stopped (F2).
+    ``device`` is the card's; a CPU rehearsal passes ``"cpu"`` and a
+    reduced ``cfg``."""
+    import itertools
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import FLASH_MIN_SEQ
+    from repro_torch.serving import ShardClient, serve_fleet, sharded
+
+    cfg = cfg or get_config("minicpm-2b")
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    prompts = served_prompts(cfg)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mesh = port_mesh()
+    fresh_counters(mesh)
+    sharded._session_seq = itertools.count(1)     # the fleet's fifth counter
+    sim = mesh.simnet.Sim(seed=FLEET_SEED)
+    fleet = mesh.fleet.make_fleet(6, nat_kinds=fleet_nat_kinds(mesh),
+                                  sim=sim)
+    peers = fleet.peers
+    stages = {}
+    ops.reset_launch_counts()
+    servers = _rss_stage(stages, "serve_fleet", lambda: sim.run_process(
+        serve_fleet(peers[:FLEET_SHARDS * FLEET_REPLICAS], cfg, tree,
+                    FLEET_NAME, replicas=FLEET_REPLICAS,
+                    n_slots=FLEET_SLOTS)))
+    require(all(s.engine.device.type == device and s.engine.fused
+                for s in servers), "F3: a shard's engine is off the card "
+            "or not fused")
+    # each shard's own record of its work: prefill lengths, live steps
+    work = [{"prefill_lens": [], "live_steps": 0} for _ in servers]
+    for s, w in zip(servers, work):
+        eng = s.engine
+
+        def prefill(session, slot, x, max_len, _f=eng._prefill, _w=w):
+            _w["prefill_lens"].append(int(np.asarray(x).shape[1]))
+            return _f(session, slot, x, max_len)
+
+        def step(sessions, x, _f=eng._step_fused, _w=w):
+            out = _f(sessions, x)
+            _w["live_steps"] += bool(out[1])
+            return out
+        eng._prefill, eng._step_fused = prefill, step
+    client = ShardClient(peers[5], cfg, FLEET_NAME, n_shards=FLEET_SHARDS)
+    index = {p.shape[1]: i for i, p in enumerate(prompts)}
+    rows = {}
+
+    def sample(req, logits, _f=client._sample):
+        rows[(index[req.prompt.shape[1]], len(req.generated))] = \
+            np.array(logits, dtype=np.float32)
+        return _f(req, logits)
+    client._sample = sample
+
+    def drained(gate):
+        sim.run(until=sim.now + FLEET_DRAIN_S)
+        for s in servers:
+            if s.alive:
+                require(s.engine.slots_used == 0
+                        and s.engine.stats["pages"] == 0,
+                        f"{gate}: shard {s.shard_idx} on {s.node.host.name} "
+                        f"holds {s.engine.slots_used} slots, "
+                        f"{s.engine.stats['pages']} pages")
+
+    # F1: every session through the fleet, held to the reference
+    def f1():
+        return (yield from client.generate_concurrent(
+            [dict(tokens=p, n_tokens=CKPT_STEPS) for p in prompts]))
+    with torch.no_grad():
+        outs = _rss_stage(stages, "f1", lambda: sim.run_process(f1()))
+    f1_stats = dict(client.stats)
+    require(f1_stats["failed_sessions"] == 0, f"F1: {f1_stats}")
+    f1 = fleet_hold(outs, rows, reference, CKPT_STEPS, "F1")
+    f1["tokens"] = [o.tolist() for o in outs]
+    drained("F3 after F1")
+
+    # F2: the same prompts again; the first busy shard-1 replica stops
+    rows.clear()
+    killed = {}
+
+    def f2():
+        evs = [client.submit(p, CKPT_STEPS) for p in prompts]
+        busy = []
+        for _ in range(FLEET_POLLS):
+            yield sim.timeout(0.01)
+            busy = [s for s in servers if s.alive and s.shard_idx == 1
+                    and s.engine.slots_used > 0]
+            if busy:
+                break
+        require(busy, "F2: no shard-1 replica held a slot")
+        victim = busy[0]
+        killed.update(server=victim, at=sim.now,
+                      slots=victim.engine.slots_used,
+                      stats=dict(victim.engine.stats))
+        victim.stop()
+        res = []
+        for ev in evs:
+            res.append((yield ev))
+        return res
+    migrated0 = client.stats["sessions_migrated"]
+    failed0 = client.stats["failed_sessions"]
+    with torch.no_grad():
+        outs = _rss_stage(stages, "f2", lambda: sim.run_process(f2()))
+    f2_stats = dict(client.stats)
+    require(f2_stats["failed_sessions"] == failed0, f"F2: {f2_stats}")
+    require(f2_stats["sessions_migrated"] - migrated0 >= 1,
+            f"F2: no session migrated: {f2_stats}")
+    f2 = fleet_hold(outs, rows, reference, CKPT_STEPS, "F2")
+    f2["tokens"] = [o.tolist() for o in outs]
+    victim = killed["server"]
+    work_keys = ("admitted", "prefills", "steps", "step_sessions")
+    require(all(victim.engine.stats[k] == killed["stats"][k]
+                for k in work_keys), "F2: work reached the stopped server: "
+            f"{ {k: victim.engine.stats[k] for k in work_keys} } after "
+            f"{ {k: killed['stats'][k] for k in work_keys} }")
+    drained("F3 after F2")
+
+    # F3: only the paged and flash kernels, as many as the shards' work
+    counts = ops.launch_counts()
+    predicted = {k: 0 for k in counts}
+    for s, w in zip(servers, work):
+        L = s.module.n_layers
+        require(len(w["prefill_lens"]) == s.engine.stats["prefills"]
+                and w["live_steps"] <= s.engine.stats["steps"],
+                f"F3: the record of shard {s.shard_idx} on "
+                f"{s.node.host.name} disagrees with its engine's stats")
+        predicted["paged_decode_attention"] += L * w["live_steps"]
+        predicted["flash_attention"] += L * sum(
+            n >= FLASH_MIN_SEQ for n in w["prefill_lens"])
+    require(counts == predicted, f"F3: launches {counts} != {predicted}")
+    require(counts["paged_decode_attention"] > 0
+            and counts["flash_attention"] > 0, f"F3: launches {counts}")
+    card_peak = torch.cuda.max_memory_allocated() if on_card else None
+
+    def path(a, b):
+        conn = a.host.connection_to(b.host)
+        if conn is None:
+            return "none"
+        return "relayed" if conn.relayed else "direct"
+    rpc = {}
+    for method in ("open", "step"):
+        lat, calls, errors = [], 0, 0
+        for wire, st in client.node.rpc_metrics.client.items():
+            if wire.startswith(f"infer.v2.{method}."):
+                lat += list(st.latencies)
+                calls += st.calls
+                errors += st.errors
+        rpc[method] = {"calls": calls, "errors": errors,
+                       "median": statistics.median(lat) if lat else None,
+                       "max": max(lat) if lat else None}
+    emit({"phase": "fleet", "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": nvidia_smi(), "model": cfg.name,
+          "shards": [(s.node.host.name, s.shard_idx, s.module.lo,
+                      s.module.hi) for s in servers],
+          "nat": {n.host.name: fleet.nat_kind_of(n) for n in peers},
+          "paths": {"client_shard": {
+                        f"{s.node.host.name}/{s.shard_idx}": path(
+                            client.node, s.node) for s in servers},
+                    "shard_shard": {
+                        f"{a.node.host.name}-{b.node.host.name}": path(
+                            a.node, b.node)
+                        for a in servers for b in servers
+                        if a.shard_idx == 0 and b.shard_idx == 1}},
+          "rpc_sim_s": rpc,
+          "wall_s": {k: stages[k]["s"] for k in ("serve_fleet", "f1", "f2")},
+          "peak_rss_bytes": {k: stages[k]["peak_rss_bytes"]
+                             for k in ("serve_fleet", "f1", "f2")},
+          "max_memory_allocated_bytes": card_peak,
+          "f1": dict(f1, client=f1_stats,
+                     failed_sessions=f1_stats["failed_sessions"]),
+          "f2": dict(f2, client=f2_stats, killed=(
+              killed["server"].node.host.name, killed["at"],
+              killed["slots"]),
+              sessions_migrated=f2_stats["sessions_migrated"] - migrated0),
+          "f3": {"launches": counts, "predicted": predicted,
+                 "work": [dict(w, host=s.node.host.name, shard=s.shard_idx,
+                               steps=s.engine.stats["steps"],
+                               pages_peak=s.engine.stats["pages_peak"])
+                          for s, w in zip(servers, work)]},
+          "sim_s": sim.now, "smoke_s": time.perf_counter() - t_main})
+    return counts
 
 
 def release(torch, before: str) -> None:
@@ -2700,8 +3030,13 @@ def main() -> int:
     train_counts, _ = training_phase(torch)
     release(torch, "checkpoint")
     trained, trained_entries = checkpoint_phase(torch)
-    mesh_phase(torch, trained, trained_entries, t_main)
+    fetched, reference = mesh_phase(torch, trained, trained_entries, t_main)
+    # the fleet serves the fetched tree: the trained one goes first
     del trained, trained_entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_phase(torch, fetched, reference, t_main)
+    del fetched, reference
     emit({"phase": "done", "seconds": time.perf_counter() - t_main})
 
     emit({"kernels": [

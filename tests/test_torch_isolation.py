@@ -15,7 +15,9 @@ from repro_torch.configs import get_config
 from repro_torch.core.simnet import Sim
 from repro_torch.launch import serve
 from repro_torch.models import decoder
-from repro_torch.serving import BatchEngine, GenerationEngine, ShardModule
+from repro_torch.core.fleet import make_fleet
+from repro_torch.serving import (BatchEngine, GenerationEngine,
+                                 PressureMonitor, ShardModule)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -24,6 +26,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 MESH = ("simnet", "peer", "nat", "rpc", "service", "metrics", "dht",
         "blockstore", "bitswap", "pubsub", "rendezvous", "crdt", "traversal",
         "node", "fleet", "cid", "safepickle")
+#: the serving fleet's modules
+SERVING = ("sharded", "router", "pressure", "batch", "engine")
 
 
 def _port_files():
@@ -50,7 +54,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             PORT / "train" / "step.py", PORT / "train" / "trainer.py",
             PORT / "launch" / "train.py",
             PORT / "checkpoint" / "lattica_ckpt.py"} | {
-            PORT / "core" / f"{m}.py" for m in MESH} <= set(files)
+            PORT / "core" / f"{m}.py" for m in MESH} | {
+            PORT / "serving" / f"{m}.py" for m in SERVING} <= set(files)
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -72,8 +77,13 @@ def test_importing_every_module_loads_no_jax():
         " 'repro_torch.train.trainer', 'repro_torch.launch.train',"
         " 'repro_torch.checkpoint.lattica_ckpt'}"
         f" | {{'repro_torch.core.' + m for m in {MESH!r}}}"
+        f" | {{'repro_torch.serving.' + m for m in {SERVING!r}}}"
         " <= set(names), names\n"
         "assert not bad, bad\n"
+        "from repro_torch.serving import (InferenceService,"
+        " InferenceV2Service, LoadAwareRouter, PressureMonitor, ShardClient,"
+        " ShardServer, deploy_sharded, hedged_call, load_publisher,"
+        " publish_serving_plan, serve_fleet)\n"
         # a payload under the JAX package's wire names decodes into the
         # port's classes without importing the JAX package
         "from repro_torch.checkpoint import lattica_ckpt\n"
@@ -122,9 +132,14 @@ def test_entry_points_refuse_a_missing_card(no_cuda):
         decoder.init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "granite-8b", "--reduced"])
+    # the fleet: a replica spawned under pressure serves on the card
+    node = make_fleet(1, join=False, maintenance=False).peers[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PressureMonitor(node, cfg, "svc")
     # asked for explicitly, the CPU works
     BatchEngine(module, Sim(), device="cpu")
     GenerationEngine(cfg, params, device="cpu")
+    PressureMonitor(node, cfg, "svc", device="cpu")
 
 
 def test_cli_serves_on_the_cpu_when_asked(capsys):
