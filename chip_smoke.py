@@ -17,8 +17,11 @@ Phases, each printed as one JSON object per line:
    wider than any length with its padding on poisoned pages,
    qwen2-moe-a2.7b's H=16, Hk=16, every slot at 8191, and one session at
    8191 alone or beside one at 33 (64 splits, past the merge pass's 32 at
-   once); two launches must agree to the bit, also at 64 splits; timed
-   with cold L2 at today's shape, qwen2-moe's and all-8191, each beside
+   once), and the fleet's decode at minicpm-2b's H=Hk=36, hd=64 (its last
+   step's lengths 2063, 315, 79, 27; 2047-2049 beside 160; 2063 alone);
+   two launches must agree to the bit, also at 64 splits and at hd=64;
+   timed with cold L2 at today's shape, qwen2-moe's, all-8191 and the
+   fleet's minicpm-2b step, each beside
    its bytes bound, today's shape also with a clean cold L2 and with
    every length 0 (the floor); the split pass's
    shared memory and resident blocks, and both passes' ptxas registers and
@@ -415,26 +418,32 @@ def paged_bound_ms(lengths, H, Hk, hd=128, page=32, itemsize=4,
     return (kv + sc + fixed) / HBM_BYTES_PER_S * 1e3
 
 
-#: the split pass's edges (name: H, Hk, lengths, table width), held against
-#: the plain version like today's shape: lengths either side of the 4-page
-#: (128-row) splits granite-8b's decode plans, one slot at 8191 beside
+#: the split pass's edges (name: H, Hk, hd, lengths, table width), held
+#: against the plain version like today's shape: lengths either side of the
+#: 4-page (128-row) splits granite-8b's decode plans, one slot at 8191 beside
 #: empty ones, a table far wider than any length whose padding points at
-#: poisoned pages, qwen2-moe-a2.7b's heads, every slot at 8191, and one
-#: long session decoding alone or beside a short one (64 splits, past the
-#: 32 the merge pass reads at once)
+#: poisoned pages, qwen2-moe-a2.7b's heads, every slot at 8191, one long
+#: session decoding alone or beside a short one (64 splits, past the 32 the
+#: merge pass reads at once), and the fleet's decode at minicpm-2b's widths
+#: (H=Hk=36, hd=64: the hd64/rep1 instantiations): its last step's lengths
+#: (prompts of 2048, 300, 64 and 12 tokens, 16 generated), the page edges
+#: around 2048, and the long session alone
 PAGED_CASES = {
-    "split_edges": (32, 8, [127, 128, 129, 255, 256, 257, 0, 1], None),
-    "long_8191": (32, 8, [8191, 0, 0, 0, 0, 0, 0, 0], None),
-    "wide_table": (32, 8, [0, 5, 40, 100, 31, 64, 1, 33], 256),
-    "qwen_heads": (16, 16, PAGED_LENGTHS, None),
-    "all_8191": (32, 8, [8191] * 8, None),
-    "alone_8191": (32, 8, [8191], None),
-    "pair_8191_33": (32, 8, [8191, 33], None),
+    "split_edges": (32, 8, 128, [127, 128, 129, 255, 256, 257, 0, 1], None),
+    "long_8191": (32, 8, 128, [8191, 0, 0, 0, 0, 0, 0, 0], None),
+    "wide_table": (32, 8, 128, [0, 5, 40, 100, 31, 64, 1, 33], 256),
+    "qwen_heads": (16, 16, 128, PAGED_LENGTHS, None),
+    "all_8191": (32, 8, 128, [8191] * 8, None),
+    "alone_8191": (32, 8, 128, [8191], None),
+    "pair_8191_33": (32, 8, 128, [8191, 33], None),
+    "minicpm_fleet": (36, 36, 64, [2063, 315, 79, 27], None),
+    "minicpm_page_edges": (36, 36, 64, [2047, 2048, 2049, 160], None),
+    "minicpm_alone": (36, 36, 64, [2063], None),
 }
 #: cases timed beside today's shape, each in fp32 and int8
-PAGED_TIMED = ("qwen_heads", "all_8191")
+PAGED_TIMED = ("qwen_heads", "all_8191", "minicpm_fleet")
 #: cases whose two launches must also agree to the bit
-PAGED_REPEAT = ("alone_8191",)
+PAGED_REPEAT = ("alone_8191", "minicpm_alone")
 
 
 def paged_check(torch, pa, name, fp32, int8) -> dict:
@@ -486,13 +495,14 @@ def paged_phase(torch, flush, build_log: str = ""):
     # tolerance: fp32 sums over up to ~8k keys in another order
     require(max(err.values()) <= 1e-4, f"paged kernel disagrees: {err}")
     cases = {}
-    for name, (h, hk, lens, width) in PAGED_CASES.items():
-        c32, c8 = paged_inputs(torch, lens, h, hk, width=width)
+    for name, (h, hk, chd, lens, width) in PAGED_CASES.items():
+        c32, c8 = paged_inputs(torch, lens, h, hk, hd=chd, width=width)
         e = paged_check(torch, pa, name, c32, c8)
         require(max(e.values()) <= 1e-4, f"paged {name} disagrees: {e}")
         NP = c32[3].shape[1]
         pps = pa.split_pages(NP, page, len(lens), hk)
-        cases[name] = {"H": h, "Hk": hk, "lengths": lens, "table_width": NP,
+        cases[name] = {"H": h, "Hk": hk, "hd": chd, "lengths": lens,
+                       "table_width": NP,
                        "pages_per_split": pps, "splits": -(-NP // pps),
                        "max_abs_err": e}
         if name in PAGED_REPEAT:
@@ -505,8 +515,8 @@ def paged_phase(torch, flush, build_log: str = ""):
                                   flush=flush),
                 kernel_int8_ms=time_ms(
                     torch, lambda: pa.paged_attention_cuda(*c8), flush=flush),
-                bound_ms=paged_bound_ms(lens, h, hk),
-                bound_int8_ms=paged_bound_ms(lens, h, hk, itemsize=1,
+                bound_ms=paged_bound_ms(lens, h, hk, hd=chd),
+                bound_int8_ms=paged_bound_ms(lens, h, hk, hd=chd, itemsize=1,
                                              scales=True))
         del c32, c8
     repeat = paged_repeat(torch, pa, fp32, int8)
@@ -540,8 +550,10 @@ def paged_phase(torch, flush, build_log: str = ""):
           "hd": hd, "page": page, "lengths": lengths,
           "pages_per_split": pa.split_pages(fp32[3].shape[1], page, M, Hk),
           **res, "bit_repeat": repeat, "cases": cases,
-          "split_config": {f"{k}_rep{r}": pa.split_config(k == "int8", hd, r)
-                           for k in ("fp32", "int8") for r in (4, 1)},
+          "split_config": {f"{k}_hd{d}_rep{r}": pa.split_config(k == "int8",
+                                                                 d, r)
+                           for k in ("fp32", "int8")
+                           for d, r in ((128, 4), (128, 1), (64, 1))},
           "ptxas": paged_ptxas(build_log)})
     return res
 

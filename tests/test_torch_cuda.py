@@ -267,7 +267,8 @@ def test_mlstm_prep_cuda_refuses_cpu_tensors():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
-@pytest.mark.parametrize("hk,rep,hd", [(8, 4, 128), (2, 2, 64), (1, 16, 128)])
+@pytest.mark.parametrize("hk,rep,hd", [(8, 4, 128), (2, 2, 64), (1, 16, 128),
+                                        (36, 1, 64)])
 def test_paged_cuda_matches_plain(cuda, quant, hk, rep, hd):
     """Ragged lengths (empty, page edges, ~2k), poisoned stale pages.
     fp32 sums run in another order over up to ~2k keys: 1e-4."""
@@ -281,19 +282,22 @@ def test_paged_cuda_matches_plain(cuda, quant, hk, rep, hd):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-#: the smoke's edge cases (hk, rep, lengths, table width) at hd 128, page 32:
+#: the smoke's edge cases (hk, rep, hd, lengths, table width) at page 32:
 #: lengths either side of the 4-page (128-row) splits granite-8b's decode
 #: plans, one slot at 8191 beside empty ones, a table far wider than any
-#: length with its padding on poisoned pages, qwen2-moe-a2.7b's heads, and
-#: one long session decoding alone or beside a short one: 64 splits of 4
-#: pages, past the 32 the merge pass reads at once
+#: length with its padding on poisoned pages, qwen2-moe-a2.7b's heads, one
+#: long session decoding alone or beside a short one (64 splits of 4 pages,
+#: past the 32 the merge pass reads at once), and the serving fleet's
+#: decode at minicpm-2b's heads (Hk=36, rep 1, hd 64)
 PAGED_EDGES = {
-    "split_edges": (8, 4, [127, 128, 129, 255, 256, 257, 0, 1], None),
-    "long_8191": (8, 4, [8191, 0, 0, 0, 0, 0, 0, 0], None),
-    "wide_table": (8, 4, [0, 5, 40, 100, 31, 64, 1, 33], 256),
-    "qwen_heads": (16, 1, [0, 31, 32, 33, 100, 2047, 2048, 2069], None),
-    "alone_8191": (8, 4, [8191], None),
-    "pair_8191_33": (8, 4, [8191, 33], None),
+    "split_edges": (8, 4, 128, [127, 128, 129, 255, 256, 257, 0, 1], None),
+    "long_8191": (8, 4, 128, [8191, 0, 0, 0, 0, 0, 0, 0], None),
+    "wide_table": (8, 4, 128, [0, 5, 40, 100, 31, 64, 1, 33], 256),
+    "qwen_heads": (16, 1, 128, [0, 31, 32, 33, 100, 2047, 2048, 2069], None),
+    "alone_8191": (8, 4, 128, [8191], None),
+    "pair_8191_33": (8, 4, 128, [8191, 33], None),
+    "minicpm_fleet": (36, 1, 64, [2063, 315, 79, 27], None),
+    "minicpm_page_edges": (36, 1, 64, [2047, 2048, 2049, 160], None),
 }
 #: the cases whose plan has more than 32 splits
 PAGED_64_SPLITS = ("alone_8191", "pair_8191_33")
@@ -301,7 +305,7 @@ PAGED_64_SPLITS = ("alone_8191", "pair_8191_33")
 
 def test_the_long_session_cases_plan_64_splits():
     for case in PAGED_64_SPLITS:
-        hk, _, lengths, _ = PAGED_EDGES[case]
+        hk, _, _, lengths, _ = PAGED_EDGES[case]
         NP = -(-(max(lengths) + 1) // 32)
         assert -(-NP // split_pages(NP, 32, len(lengths), hk)) == 64, case
 
@@ -312,8 +316,8 @@ def test_the_long_session_cases_plan_64_splits():
 def test_paged_cuda_split_edges(cuda, quant, case):
     """The split pass's edges against the plain version: 1e-4, as
     ``test_paged_cuda_matches_plain``; both passes count one launch."""
-    hk, rep, lengths, width = PAGED_EDGES[case]
-    args = _paged_inputs(lengths, 32, hk, rep, 128, cuda, quant, width=width)
+    hk, rep, hd, lengths, width = PAGED_EDGES[case]
+    args = _paged_inputs(lengths, 32, hk, rep, hd, cuda, quant, width=width)
     before = ops.launch_counts()["paged_decode_attention"]
     got = ops.paged_decode_attention(*args)
     assert ops.launch_counts()["paged_decode_attention"] == before + 1
@@ -325,11 +329,11 @@ def test_paged_cuda_split_edges(cuda, quant, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
-@pytest.mark.parametrize("hk,rep", [(8, 4), (16, 1)])
-def test_paged_cuda_is_bit_repeatable(cuda, quant, hk, rep):
+@pytest.mark.parametrize("hk,rep,hd", [(8, 4, 128), (16, 1, 128), (36, 1, 64)])
+def test_paged_cuda_is_bit_repeatable(cuda, quant, hk, rep, hd):
     """No atomics: two launches on the same inputs agree to the bit."""
     args = _paged_inputs([0, 31, 32, 33, 100, 2047, 2048, 2069], 32, hk, rep,
-                         128, cuda, quant)
+                         hd, cuda, quant)
     a = paged_attention_cuda(*args)
     b = paged_attention_cuda(*args)
     torch.cuda.synchronize()
@@ -340,8 +344,8 @@ def test_paged_cuda_is_bit_repeatable(cuda, quant, hk, rep):
 @pytest.mark.parametrize("case", PAGED_64_SPLITS)
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
 def test_paged_cuda_past_32_splits_is_bit_repeatable(cuda, quant, case):
-    hk, rep, lengths, _ = PAGED_EDGES[case]
-    args = _paged_inputs(lengths, 32, hk, rep, 128, cuda, quant, seed=7)
+    hk, rep, hd, lengths, _ = PAGED_EDGES[case]
+    args = _paged_inputs(lengths, 32, hk, rep, hd, cuda, quant, seed=7)
     a = paged_attention_cuda(*args)
     b = paged_attention_cuda(*args)
     torch.cuda.synchronize()
