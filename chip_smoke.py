@@ -129,6 +129,21 @@ Phases, each printed as one JSON object per line:
    card's peak memory, the connection path of every client-shard and
    shard-shard pair, the launch counts beside their prediction, and the
    card's name and power limit.
+14. collab — the fleet's tree released, the paper's collaborative RL
+   pipeline on the port's trainers, under gates D1-D6: the outer math on
+   card-held trees against golden constants (D2); a reduced round on the
+   card against the CPU (D3); two ``CollabWorker``s on NAT'd peers of a
+   six-peer fleet training minicpm-2b at full width cut to 4 layers, 2
+   DiLoCo rounds of 2 inner steps at B=1, S=2048 each, top-k 0.05 with
+   ``int8_block`` contributions (D1); the outer params published by the
+   lead, fetched onto the card by a peer behind a symmetric NAT and served
+   beside the lead's tree (D4); a ``LatticaSyncTrainer`` publishing every
+   step and a ``ModelSubscriber`` behind a symmetric NAT following it onto
+   the card (D5).  The line carries the card's name and power limit, the
+   outer digest, each worker's stats and wire ratio, the inner losses,
+   D3's worst ratio to its bound, the simulated seconds, connection path
+   and leak audits, each stage's wall seconds and peak host RSS, the
+   card's peak memory of D1, D4 and D5, and the launch counts.
 
 The mlstm phase (after moe_gating) holds the mLSTM kernel to gate G1 at
 xlstm-1.3b's widths and reports its two kernels' ptxas registers, spills
@@ -264,6 +279,51 @@ token from (``ShardClient._sample``), 16 per session:
   seconds on), every live shard's engine holds 0 slots and 0 pages.
 * F4: every earlier gate passes as written, the ``kernels`` line lists
   all five kernels, and the last line is the contract's.
+
+The collaborative-training bounds, fixed before this script's first run
+of them.  The fleet is the port's ``make_fleet(6, nat_kinds=
+collab_nat_kinds(...))`` under ``Sim(seed=COLLAB_SEED)`` from
+``fresh_counters``; ``CollabConfig(inner_steps=2, settle=0.5,
+topk_frac=0.05, quant="int8_block", keep_rounds=1)``; lr 1e-3, cosine,
+no warmup:
+
+* D1, rounds: both workers' ``run(2)`` return 2 and reach outer round 2;
+  no round aborted or degraded; one outer digest across the workers;
+  wire bytes / dense bytes <= 0.10 for each; no overdue pin after the
+  fleet quiesces; every inner loss and grad norm finite.
+* D2, the outer math, exact: gate C1's fp32 tree and the same tree drawn
+  from seed + 1, on the card: ``tree_to_flat`` of both, the
+  pseudo-gradient, ``compress_pseudograd(frac=0.05, quant="int8_block")``
+  and one Nesterov outer step from zero momentum (``collab_golden``); the
+  sha256 over the parts, the digests of ``sent`` and of the outer params
+  and the stats equal ``COLLAB_GOLDEN``, which the JAX package computed
+  on the CPU.
+* D3, card against CPU: a reduced minicpm-2b (``T2_REDUCED``), two
+  workers, one round of 2 steps at S=2048 from one init and one batch
+  stream, on the card in fp32 and on the CPU in fp32 and float64: each
+  worker's round-0 pseudo-gradient before compression, per leaf over its
+  largest |cpu64| entry, max|card32 - cpu64| <= max(1e-4, 2 max|cpu32 -
+  cpu64|).  The card run launches the flash forward and backward once per
+  layer per step, the CPU runs never.
+* D4, publish, fetch, serve: the lead publishes ``outer_params()`` as
+  step 2; an edge behind a symmetric NAT runs ``fetch_latest_from`` into
+  a fresh init on the card: its step is the registry's latest, every leaf
+  is on the card and ``torch.equal`` to the outer params; both trees
+  served as C4 serves but with prompts of 64 and 12 tokens and 8 greedy
+  steps give the same tokens, bit-equal logits and equal launch counts.
+  After both nodes finish (pins released, the edge hung up), no leak gauge
+  stands above its level before the publish (D1's half-open streams, a
+  hazard of the reference, may close below it).
+* D5: a ``LatticaSyncTrainer`` on a full-cone peer runs
+  ``run_mesh(2)`` with ``publish_every=1``; a ``ModelSubscriber`` behind
+  a symmetric NAT, ``like`` a fresh init on the card, follows until step
+  2: its ``current_step`` is 2, every leaf on the card and ``torch.equal``
+  to the trainer's, and both registries' latest agree.
+* D6, kernels and memory: in D1 and D5 only the flash forward and
+  backward launch, each 4 x (inner steps taken) times (4 x 8, 4 x 2); in
+  D4 only paged decode, 4 x 8 times.  The card's and the host's peaks are
+  printed.  Every earlier gate passes as written, the ``kernels`` line
+  lists all five kernels, and the last line is the contract's.
 
 Then a ``done`` line with the run's seconds, a ``{"kernels": [...]}``
 line, the ``nvidia-smi`` line, and last
@@ -2237,31 +2297,35 @@ def _rss_stage(stages, name, fn):
     return out
 
 
-def served_prompts(cfg):
-    """Gates C4's, M3's and F1's prompts: ``CKPT_PROMPTS`` tokens each,
-    from a seeded generator."""
+def served_prompts(cfg, lengths=CKPT_PROMPTS):
+    """Gates C4's, M3's and F1's prompts (D4's with ``lengths``):
+    ``lengths`` tokens each, from a seeded generator."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     return [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
-            for n in CKPT_PROMPTS]
+            for n in lengths]
 
 
-def same_served_tokens(torch, cfg, tree_a, tree_b, gate, device="cuda"):
-    """Gates C4 and M3: ``tree_a`` and then ``tree_b`` served through the
-    fused ``BatchEngine`` (prompts ``CKPT_PROMPTS``, ``CKPT_STEPS`` greedy
-    steps, page 32) give bit-equal logits rows, the same greedy tokens and
-    the same launch counts.  Returns the counts, the tokens (session,
-    step) and ``tree_b``'s run as gate F1's reference: the prefill logits
-    (session, vocab) and each step's logits (session, vocab)."""
+def same_served_tokens(torch, cfg, tree_a, tree_b, gate, device="cuda",
+                       lengths=CKPT_PROMPTS, steps=CKPT_STEPS):
+    """Gates C4, M3 and D4: ``tree_a`` and then ``tree_b`` served through
+    the fused ``BatchEngine`` (prompts of ``lengths`` tokens, ``steps``
+    greedy steps, page 32) give bit-equal logits rows, the same greedy
+    tokens and the same launch counts, paged decode's among them, and
+    flash attention's exactly when a prompt reaches ``FLASH_MIN_SEQ``.
+    Returns the counts, the tokens (session, step) and ``tree_b``'s run as
+    gate F1's reference: the prefill logits (session, vocab) and each
+    step's logits (session, vocab)."""
     import numpy as np
 
     from repro_torch.core.simnet import Sim
     from repro_torch.kernels import ops
+    from repro_torch.models.common import FLASH_MIN_SEQ
     from repro_torch.serving import BatchEngine, ShardModule, split_params
 
     L = cfg.n_layers
-    prompts = served_prompts(cfg)
+    prompts = served_prompts(cfg, lengths)
     runs = []
     for tree in (tree_a, tree_b):
         module = ShardModule(cfg, split_params(cfg, tree, [(0, L)])[0],
@@ -2271,12 +2335,13 @@ def same_served_tokens(torch, cfg, tree_a, tree_b, gate, device="cuda"):
                           page_size=32, device=device)
         ops.reset_launch_counts()
         with torch.no_grad():
-            run = _drive(eng, sim, prompts, CKPT_STEPS)
+            run = _drive(eng, sim, prompts, steps)
         runs.append((run, ops.launch_counts()))
         del eng, module
     (ra, ca), (rb, cb) = runs
     require(ca == cb, f"{gate}: launches {ca} != {cb}")
-    require(ca["flash_attention"] > 0
+    long_prompt = max(lengths) >= FLASH_MIN_SEQ
+    require((ca["flash_attention"] > 0) == long_prompt
             and ca["paged_decode_attention"] > 0, f"{gate}: launches {ca}")
     require(all(np.array_equal(x, y) for x, y in zip(ra[4], rb[4])),
             f"{gate}: the greedy tokens differ")
@@ -2986,6 +3051,443 @@ def fleet_phase(torch, tree, reference, t_main, device="cuda", cfg=None):
     return counts
 
 
+# ----------------------------------------------------------------- collab
+
+#: gates D1-D6: the fleet's seed and its two model fleets' names
+COLLAB_SEED = 28
+COLLAB_FLEET = "collab"
+COLLAB_SYNC_FLEET = "collab-sync"
+#: minicpm-2b at full width with its depth cut to this many layers: two
+#: workers' train states, a fresh init and the fetched tree on one card,
+#: and the numpy outer state of both workers in one host
+COLLAB_LAYERS = 4
+#: two workers, two rounds of two inner steps each, B=1 per worker, S=2048
+#: (the flash path), lr 1e-3 with no warmup
+COLLAB_WORKERS = 2
+COLLAB_ROUNDS = 2
+COLLAB_INNER = 2
+COLLAB_SEQ = 2048
+COLLAB_LR = 1e-3
+COLLAB_TOPK = 0.05
+#: gate D1's bound on the contributions' bytes against dense fp32
+COLLAB_WIRE_RATIO = 0.10
+#: gate D4's served prompts and greedy steps
+COLLAB_PROMPTS = [64, 12]
+COLLAB_STEPS = 8
+#: gate D5: trainer steps (each one published) and what the subscriber
+#: follows to
+COLLAB_SYNC_STEPS = 2
+#: gate D2's constants: ``collab_golden`` over gate C1's fp32 tree and the
+#: same tree drawn from seed + 1, computed through the JAX package on the
+#: CPU and re-derived there by
+#: ``tests/test_torch_collab.py::test_collab_golden_constants``
+COLLAB_GOLDEN = {
+    "parts_sha256": "908bd303cf28db0db1f77864d59bd35382db827a79bd38d2c4c9316"
+                    "68ab0865f",
+    "sent_digest": "0531dfdcda8509ee2d4b4e70b1eabdd37c281b049cbd3ddb80692692"
+                   "670d4ebb",
+    "outer_digest": "88048bb1f8db591d2d645acb17781515f53c423d7e71265a531e6f6"
+                    "f21632028",
+    "wire_bytes": 393742, "dense_bytes": 6296576}
+
+
+def collab_golden(compress, outer_step, tree_a, tree_b) -> dict:
+    """Gate D2's readings: ``tree_to_flat`` of both trees, the
+    pseudo-gradient a - b, ``compress_pseudograd(frac=COLLAB_TOPK,
+    quant="int8_block")``, then one Nesterov outer step on a's flat from
+    zero momentum (outer lr 0.7, momentum 0.9) with the average of the one
+    decoded contribution.  ``compress`` is either package's
+    ``train.compress`` and ``outer_step`` its ``CollabWorker._outer_step``.
+    Returns the sha256 over the parts' (name, payload, meta), each
+    length-prefixed, the ``flat_digest`` of ``sent`` and of the outer
+    params, and the stats."""
+    import hashlib
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    start = compress.tree_to_flat(tree_a)
+    grad = compress.pseudo_gradient(start, compress.tree_to_flat(tree_b))
+    parts, sent, stats = compress.compress_pseudograd(
+        grad, frac=COLLAB_TOPK, quant="int8_block")
+    h = hashlib.sha256()
+    for name, raw, meta in parts:
+        for field in (name.encode("utf-8"), raw, meta):
+            h.update(len(field).to_bytes(8, "big"))
+            h.update(field)
+    worker = SimpleNamespace(
+        ccfg=SimpleNamespace(outer_lr=0.7, outer_momentum=0.9,
+                             nesterov=True),
+        outer_flat=dict(start),
+        outer_mom={k: np.zeros_like(v) for k, v in start.items()})
+    outer_step(worker, compress.average_flat([sent]))
+    return {"parts_sha256": h.hexdigest(),
+            "sent_digest": compress.flat_digest(sent),
+            "outer_digest": compress.flat_digest(worker.outer_flat),
+            "wire_bytes": stats["wire_bytes"],
+            "dense_bytes": stats["dense_bytes"]}
+
+
+def collab_nat_kinds(mesh):
+    """The six peers' NAT specs: the two workers behind a port-restricted
+    cone and a restricted cone NAT; gate D4's edge behind a symmetric NAT
+    with random ports; gate D5's trainer behind a full cone NAT and its
+    subscriber behind a symmetric NAT with sequential ports; the sixth
+    behind no NAT."""
+    kind, alloc = mesh.nat.NATKind, mesh.nat.PortAlloc
+    return [kind.PORT_RESTRICTED, kind.RESTRICTED_CONE,
+            (kind.SYMMETRIC, alloc.RANDOM, 1), kind.FULL_CONE,
+            (kind.SYMMETRIC, alloc.SEQUENTIAL, 1), None]
+
+
+def collab_fleet(mesh):
+    """From ``fresh_counters``, ``make_fleet(6, ...)`` of the port's mesh
+    (``collab_nat_kinds``) under ``Sim(seed=COLLAB_SEED)``."""
+    fresh_counters(mesh)
+    return mesh.fleet.make_fleet(6, nat_kinds=collab_nat_kinds(mesh),
+                                 sim=mesh.simnet.Sim(seed=COLLAB_SEED))
+
+
+def collab_workers(cfg, fleet, states):
+    """One ``CollabWorker`` of the port per state, on peers 0, 1, ...,
+    each on its shard of ``make_batch_iterator(vocab, COLLAB_SEQ,
+    COLLAB_WORKERS, n_shards=COLLAB_WORKERS, shard=i, seed=0)``."""
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.train import collab
+
+    sched = cosine_schedule(COLLAB_LR, 0, 100)
+    return [collab.CollabWorker(
+        fleet.peers[i], cfg, state, sched, make_batch_iterator(
+            cfg.vocab, COLLAB_SEQ, COLLAB_WORKERS,
+            n_shards=COLLAB_WORKERS, shard=i, seed=0), COLLAB_FLEET,
+        collab=collab.CollabConfig(
+            inner_steps=COLLAB_INNER, settle=0.5, topk_frac=COLLAB_TOPK,
+            quant="int8_block", keep_rounds=1), step_seconds=0.5)
+        for i, state in enumerate(states)]
+
+
+def collab_run(fleet, workers, rounds):
+    """Every worker's ``run(rounds)`` as a sim process, to the last one's
+    end; the fleet then runs on ``MESH_DRAIN_S`` simulated seconds.
+    Returns each worker's rounds applied."""
+    sim = fleet.sim
+    procs = [sim.process(w.run(rounds)) for w in workers]
+
+    def joined():
+        return (yield sim.all_of(procs))
+    applied = sim.run_process(joined(), until=sim.now + 3600)
+    sim.run(until=sim.now + MESH_DRAIN_S)
+    return applied
+
+
+def collab_parity(torch, cfg, device="cuda"):
+    """Gate D3: two workers, one round of ``COLLAB_INNER`` steps at
+    S=2048, from one init (``cfg``, seed ``COLLAB_SEED``) crossed to the
+    card (``device``) in fp32 and to the CPU in fp32 and float64, on the
+    same batches.  Each worker's round-0 pseudo-gradient before
+    compression, per leaf over its largest |cpu64| entry: max|card32 -
+    cpu64| <= max(1e-4, 2 max|cpu32 - cpu64|).  The float64 run's is its
+    start minus its end in float64.  On the card, the card run launches
+    the flash forward and backward once per layer per inner step, the CPU
+    runs never.  Returns the readings."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoder
+    from repro_torch.optim import adamw_init
+    from repro_torch.params import params_from_numpy, params_to_numpy
+    from repro_torch.train import TrainState
+    from repro_torch.train.compress import pseudo_gradient, tree_to_flat
+    from repro_torch.tree import leaves
+
+    base = params_to_numpy(decoder.init_params(
+        cfg, torch.Generator().manual_seed(COLLAB_SEED), "cpu"))
+    mesh = port_mesh()
+    runs, counts = {}, {}
+    for name, dev, dt in (("card32", device, np.float32),
+                          ("cpu32", "cpu", np.float32),
+                          ("cpu64", "cpu", np.float64)):
+        states = []
+        for _ in range(COLLAB_WORKERS):
+            params = params_from_numpy(_cast_tree(base, dt), dev)
+            for p in leaves(params):
+                p.requires_grad_(True)
+            states.append(TrainState(params, adamw_init(params)))
+        fleet = collab_fleet(mesh)
+        workers = collab_workers(cfg, fleet, states)
+        start = {k: v.copy() for k, v in workers[0].outer_flat.items()}
+        ops.reset_launch_counts()
+        require(collab_run(fleet, workers, 1) == [1] * COLLAB_WORKERS,
+                f"D3: a {name} worker did not close its round")
+        counts[name] = ops.launch_counts()
+        grads = []
+        for w in workers:
+            if dt == np.float64:
+                end = dict(named_leaves(w._state.params, sep="/"))
+                grads.append({k: torch.from_numpy(v).double()
+                              - end[k].detach() for k, v in start.items()})
+            else:
+                grads.append({k: torch.from_numpy(v).double() for k, v in
+                              pseudo_gradient(start, tree_to_flat(
+                                  w._state.params)).items()})
+        runs[name] = grads
+        del workers, fleet, states
+    if device == "cuda":
+        want = {k: 0 for k in counts["card32"]}
+        want["flash_attention"] = want["flash_attention_bwd"] = (
+            cfg.n_layers * COLLAB_INNER * COLLAB_WORKERS)
+        require(counts["card32"] == want, f"D3: card launches "
+                f"{counts['card32']} != {want}")
+        require(not any(counts["cpu32"].values())
+                and not any(counts["cpu64"].values()),
+                "D3: the CPU runs launched kernels")
+    ratios = []
+    for i in range(COLLAB_WORKERS):
+        for k in sorted(runs["cpu64"][i]):
+            a, b, c = (runs[r][i][k] for r in ("card32", "cpu32", "cpu64"))
+            scale = c.abs().max().item()
+            require(scale > 0, f"D3: worker {i} {k}: a zero pseudo-gradient")
+            err = (a - c).abs().max().item() / scale
+            bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
+            ratios.append((err / bound, i, k))
+    worst = max(ratios)
+    require(worst[0] <= 1.0, f"gate D3 fails: worker {worst[1]} {worst[2]} "
+            f"at {worst[0]} of its bound")
+    return {"config": f"minicpm-2b reduced(L={cfg.n_layers}, "
+                      f"d={cfg.d_model}, vocab={cfg.vocab})",
+            "ratio_to_bound_max": worst[0], "worst_leaf": list(worst[1:]),
+            "leaves": len(ratios), "launches": counts}
+
+
+def collab_phase(torch, t_main, device="cuda", cfg=None, parity_cfg=None):
+    """Gates D1-D6: DiLoCo rounds of the port's ``CollabWorker`` on the
+    card, then the paper's RL pipeline: the outer params published over
+    the port's mesh, fetched onto the card behind a symmetric NAT and
+    served; and a ``LatticaSyncTrainer`` followed by a ``ModelSubscriber``.
+    ``cfg`` is minicpm-2b at full width cut to ``COLLAB_LAYERS`` layers by
+    default, ``parity_cfg`` gate D3's reduced one (``T2_REDUCED``);
+    ``device`` is the card's, and a CPU rehearsal passes ``"cpu"`` and
+    small configs."""
+    from repro_torch.checkpoint import (CheckpointRegistry,
+                                        fetch_latest_from,
+                                        publish_checkpoint, serve_checkpoints)
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoder
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.params import params_from_numpy
+    from repro_torch.train import (LatticaSyncTrainer, collab, compress,
+                                   train_state_init)
+    from repro_torch.train.trainer import ModelSubscriber
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    full = get_config("minicpm-2b")
+    cfg = cfg or dataclasses.replace(full, n_layers=COLLAB_LAYERS)
+    parity_cfg = parity_cfg or full.reduced(**T2_REDUCED)
+    L = cfg.n_layers
+    mesh = port_mesh()
+    stages = {}
+
+    def card_peak():
+        if not on_card:
+            return None
+        out = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def freed():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def only(counts, want, gate):
+        full_want = {k: 0 for k in counts}
+        full_want.update(want)
+        require(counts == full_want, f"{gate}: launches {counts} != "
+                f"{full_want}")
+
+    # D2: the outer math on card-held trees, exact
+    tree_a = golden_trees(torch, device)["fp32"]
+    tree_b = params_from_numpy(golden_numpy_tree(
+        tree_a, CKPT_GOLDEN_SEED + 1), device)
+    d2 = collab_golden(compress, collab.CollabWorker._outer_step, tree_a,
+                       tree_b)
+    require(d2 == COLLAB_GOLDEN, f"D2: {d2} != {COLLAB_GOLDEN}")
+    del tree_a, tree_b
+
+    # D3: a reduced round, card against the CPU
+    d3 = _rss_stage(stages, "d3", lambda: collab_parity(
+        torch, parity_cfg, device))
+    freed()
+
+    # D1: the rounds at full width
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fleet = collab_fleet(mesh)
+    sim = fleet.sim
+    sim.leak_baseline()
+    workers = collab_workers(cfg, fleet, [train_state_init(
+        cfg, torch.Generator(device=device).manual_seed(COLLAB_SEED), device)
+        for _ in range(COLLAB_WORKERS)])
+    ops.reset_launch_counts()
+    t_sim = sim.now
+    applied = _rss_stage(stages, "d1", lambda: collab_run(
+        fleet, workers, COLLAB_ROUNDS))
+    d1_sim_s = sim.now - t_sim
+    d1_counts = ops.launch_counts()
+    require(applied == [COLLAB_ROUNDS] * COLLAB_WORKERS
+            and all(w.outer_round == COLLAB_ROUNDS for w in workers),
+            f"D1: rounds applied {applied}, outer rounds "
+            f"{[w.outer_round for w in workers]}")
+    require(all(w.stats["rounds_aborted"] == w.stats["rounds_degraded"] == 0
+                for w in workers), f"D1: {[w.stats for w in workers]}")
+    digests = sorted({w.outer_digest() for w in workers})
+    require(len(digests) == 1, f"D1: outer state forked: {digests}")
+    ratios = [w.stats["wire_bytes"] / w.stats["dense_bytes"]
+              for w in workers]
+    require(max(ratios) <= COLLAB_WIRE_RATIO, f"D1: wire ratios {ratios}")
+    require(all(w.overdue_pins() == 0 for w in workers),
+            f"D1: overdue pins {[w.overdue_pins() for w in workers]}")
+    hist = [h for w in workers for h in w.history]
+    taken = COLLAB_WORKERS * COLLAB_ROUNDS * COLLAB_INNER
+    require(len(hist) == taken and all(
+        math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+        for h in hist), f"D1: inner steps {hist}")
+    only(d1_counts, {"flash_attention": L * taken,
+                     "flash_attention_bwd": L * taken}, "D6 in D1")
+    d1_held = sim.leak_audit()
+    n_params = sum(v.size for v in workers[0].outer_flat.values())
+    d1_peak = card_peak()
+
+    # D4: the lead publishes the outer params, an edge behind a symmetric
+    # NAT fetches them onto the card, and both trees serve alike
+    lead, edge = workers[0], fleet.peers[2]
+    outer = lead.outer_params()
+    sim.leak_baseline()
+    serve_checkpoints(lead.node)
+
+    def publish():
+        return (yield from publish_checkpoint(lead.node, outer, COLLAB_ROUNDS,
+                                              COLLAB_FLEET))
+
+    def fetch():
+        t0 = sim.now
+        step, got = yield from fetch_latest_from(
+            edge, lead.node.info(), COLLAB_FLEET, like=decoder.init_params(
+                cfg, torch.Generator(device=device).manual_seed(1), device))
+        return step, got, sim.now - t0
+    root = _rss_stage(stages, "d4_publish", lambda: sim.run_process(
+        publish()))
+    step, fetched, d4_fetch_sim_s = _rss_stage(
+        stages, "d4_fetch", lambda: sim.run_process(fetch()))
+    latest = CheckpointRegistry(lead.node, COLLAB_FLEET).latest()
+    require(latest == (COLLAB_ROUNDS, root) and step == latest[0],
+            f"D4: fetched step {step}, registry {latest}")
+    want = dict(named_leaves(outer))
+    got = dict(named_leaves(fetched))
+    require(sorted(got) == sorted(want), "D4: other leaves came back")
+    for name, b in got.items():
+        require(b.device.type == device and torch.equal(want[name], b),
+                f"D4: {name} differs or is not on the card")
+    conn = edge.host.connection_to(lead.node.host)
+    d4_path = ("none" if conn is None else "relayed" if conn.relayed
+               else "direct")
+    for node in (lead.node, edge):
+        node.unpin_latest(f"ckpt/{COLLAB_FLEET}")
+    for c in list(edge.host._connections.get(lead.node.host.name, [])):
+        c.close()
+    # D1's fetches left half-open streams (a reference hazard); closing
+    # their connections may take gauges below this baseline, never above
+    d4_leaks = sim.leak_audit()
+    require(all(v < 0 for v in d4_leaks.values()),
+            f"D4: leak audit {d4_leaks}")
+    d4_counts, d4_tokens, _ = _rss_stage(stages, "d4_serve", lambda:
+                                         same_served_tokens(
+        torch, cfg, outer, fetched, "D4", device, lengths=COLLAB_PROMPTS,
+        steps=COLLAB_STEPS))
+    only(d4_counts, {"paged_decode_attention": L * COLLAB_STEPS},
+         "D6 in D4")
+    d4_peak = card_peak()
+    d1_stats = [dict(w.stats, name=w.name) for w in workers]
+    d1_rounds = [[h["loss"] for h in w.history] for w in workers]
+    nat = {n.host.name: fleet.nat_kind_of(n) for n in fleet.peers}
+    del workers, lead, edge, outer, fetched, want, got, fleet, sim, conn
+    freed()
+
+    # D5: a LatticaSyncTrainer publishes every step; a ModelSubscriber
+    # behind a symmetric NAT follows it onto the card
+    fleet = collab_fleet(mesh)
+    sim = fleet.sim
+    trainer_node, sub_node = fleet.peers[3], fleet.peers[4]
+    trainer = LatticaSyncTrainer(
+        cfg, train_state_init(cfg, torch.Generator(device=device).manual_seed(
+            COLLAB_SEED), device), cosine_schedule(COLLAB_LR, 0, 100),
+        make_batch_iterator(cfg.vocab, COLLAB_SEQ, 1, seed=0),
+        node=trainer_node, fleet=COLLAB_SYNC_FLEET, publish_every=1,
+        step_seconds=0.5)
+    sub = ModelSubscriber(sub_node, cfg, COLLAB_SYNC_FLEET,
+                          like=decoder.init_params(
+                              cfg, torch.Generator(device=device).manual_seed(
+                                  1), device))
+    ops.reset_launch_counts()
+    procs = [sim.process(trainer.run_mesh(COLLAB_SYNC_STEPS, log=None)),
+             sim.process(sub.follow(interval=2.0,
+                                    until_step=COLLAB_SYNC_STEPS))]
+
+    def joined():
+        return (yield sim.all_of(procs))
+    _rss_stage(stages, "d5", lambda: sim.run_process(
+        joined(), until=sim.now + 7200))
+    d5_counts = ops.launch_counts()
+    require(sub.current_step == COLLAB_SYNC_STEPS,
+            f"D5: the subscriber reached step {sub.current_step}")
+    want = dict(named_leaves(trainer.state.params))
+    got = dict(named_leaves(sub.params))
+    require(sorted(got) == sorted(want), "D5: other leaves came back")
+    for name, b in got.items():
+        require(b.device.type == device and torch.equal(
+            want[name].detach(), b), f"D5: {name} differs or is not on the "
+            "card")
+    registries = [CheckpointRegistry(n, COLLAB_SYNC_FLEET).latest()
+                  for n in (sub_node, trainer_node)]
+    require(registries[0] == registries[1] is not None,
+            f"D5: registries {registries}")
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in trainer.history), f"D5: {trainer.history}")
+    only(d5_counts, {"flash_attention": L * COLLAB_SYNC_STEPS,
+                     "flash_attention_bwd": L * COLLAB_SYNC_STEPS},
+         "D6 in D5")
+    d5_peak = card_peak()
+    d5 = {"fetch_log": sub.fetch_log, "sim_s": sim.now,
+          "loss": [h["loss"] for h in trainer.history],
+          "published": len(trainer.published)}
+    del trainer, sub, want, got, fleet, sim, procs
+    freed()
+    emit({"phase": "collab", "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": nvidia_smi(), "model": cfg.name,
+          "reduced": {"n_layers": [full.n_layers, L]},
+          "params": n_params,
+          "d1": {"digest": digests[0], "wire_ratio": ratios,
+                 "stats": d1_stats, "inner_loss": d1_rounds,
+                 "sim_s": d1_sim_s, "leaks_held": d1_held, "nat": nat},
+          "d2": d2, "d3": d3,
+          "d4": {"root": cid_hex(root), "path": d4_path,
+                 "leaks": d4_leaks,
+                 "fetch_sim_s": d4_fetch_sim_s, "tokens": d4_tokens},
+          "d5": d5,
+          "launches": {"d1": d1_counts, "d4": d4_counts, "d5": d5_counts},
+          "wall_s": {k: v["s"] for k, v in stages.items()},
+          "peak_rss_bytes": {k: v["peak_rss_bytes"]
+                             for k, v in stages.items()},
+          "max_memory_allocated_bytes": {"d1": d1_peak, "d4": d4_peak,
+                                         "d5": d5_peak},
+          "smoke_s": time.perf_counter() - t_main})
+    return d1_counts
+
+
 def release(torch, before: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3049,6 +3551,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_phase(torch, fetched, reference, t_main)
     del fetched, reference
+    gc.collect()
+    torch.cuda.empty_cache()
+    collab_phase(torch, t_main)
     emit({"phase": "done", "seconds": time.perf_counter() - t_main})
 
     emit({"kernels": [
