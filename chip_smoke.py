@@ -131,15 +131,16 @@ Phases, each printed as one JSON object per line:
    card's name and power limit.
 14. collab — the fleet's tree released, the paper's collaborative RL
    pipeline on the port's trainers, under gates D1-D6: the outer math on
-   card-held trees against golden constants (D2); a reduced round on the
-   card against the CPU (D3); two ``CollabWorker``s on NAT'd peers of a
-   six-peer fleet training minicpm-2b at full width cut to 4 layers, 2
-   DiLoCo rounds of 2 inner steps at B=1, S=2048 each, top-k 0.05 with
-   ``int8_block`` contributions (D1); the outer params published by the
-   lead, fetched onto the card by a peer behind a symmetric NAT and served
-   beside the lead's tree (D4); a ``LatticaSyncTrainer`` publishing every
-   step and a ``ModelSubscriber`` behind a symmetric NAT following it onto
-   the card (D5).  The line carries the card's name and power limit, the
+   card-held trees against golden constants (D2); two ``CollabWorker``s
+   on NAT'd peers of a six-peer fleet training minicpm-2b at full width
+   cut to 4 layers, 2 DiLoCo rounds of 2 inner steps at B=1, S=2048 each,
+   top-k 0.05 with ``int8_block`` contributions (D1); the outer params
+   published by the lead, fetched onto the card by a peer behind a
+   symmetric NAT and served beside the lead's tree (D4); a
+   ``LatticaSyncTrainer`` publishing every step and a ``ModelSubscriber``
+   behind a symmetric NAT following it onto the card (D5); last, a
+   reduced round on the card against the CPU (D3), held after the line
+   is printed.  The line carries the card's name and power limit, the
    outer digest, each worker's stats and wire ratio, the inner losses,
    D3's worst ratio to its bound, the simulated seconds, connection path
    and leak audits, each stage's wall seconds and peak host RSS, the
@@ -3190,7 +3191,8 @@ def collab_parity(torch, cfg, device="cuda"):
     cpu64| <= max(1e-4, 2 max|cpu32 - cpu64|).  The float64 run's is its
     start minus its end in float64.  On the card, the card run launches
     the flash forward and backward once per layer per inner step, the CPU
-    runs never.  Returns the readings."""
+    runs never.  Returns the readings, every leaf over its bound among
+    them; the caller holds the bound."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -3252,11 +3254,11 @@ def collab_parity(torch, cfg, device="cuda"):
             bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
             ratios.append((err / bound, i, k))
     worst = max(ratios)
-    require(worst[0] <= 1.0, f"gate D3 fails: worker {worst[1]} {worst[2]} "
-            f"at {worst[0]} of its bound")
     return {"config": f"minicpm-2b reduced(L={cfg.n_layers}, "
                       f"d={cfg.d_model}, vocab={cfg.vocab})",
             "ratio_to_bound_max": worst[0], "worst_leaf": list(worst[1:]),
+            "over_bound": [list(r) for r in sorted(ratios, reverse=True)
+                           if r[0] > 1.0],
             "leaves": len(ratios), "launches": counts}
 
 
@@ -3317,11 +3319,6 @@ def collab_phase(torch, t_main, device="cuda", cfg=None, parity_cfg=None):
                        tree_b)
     require(d2 == COLLAB_GOLDEN, f"D2: {d2} != {COLLAB_GOLDEN}")
     del tree_a, tree_b
-
-    # D3: a reduced round, card against the CPU
-    d3 = _rss_stage(stages, "d3", lambda: collab_parity(
-        torch, parity_cfg, device))
-    freed()
 
     # D1: the rounds at full width
     if on_card:
@@ -3466,6 +3463,11 @@ def collab_phase(torch, t_main, device="cuda", cfg=None, parity_cfg=None):
           "published": len(trainer.published)}
     del trainer, sub, want, got, fleet, sim, procs
     freed()
+
+    # D3: a reduced round, card against the CPU, read last and held after
+    # the line, so that the line carries every gate's readings
+    d3 = _rss_stage(stages, "d3", lambda: collab_parity(
+        torch, parity_cfg, device))
     emit({"phase": "collab", "phase_s": time.perf_counter() - t_phase,
           "nvidia_smi": nvidia_smi(), "model": cfg.name,
           "reduced": {"n_layers": [full.n_layers, L]},
@@ -3485,7 +3487,20 @@ def collab_phase(torch, t_main, device="cuda", cfg=None, parity_cfg=None):
           "max_memory_allocated_bytes": {"d1": d1_peak, "d4": d4_peak,
                                          "d5": d5_peak},
           "smoke_s": time.perf_counter() - t_main})
+    require(d3["ratio_to_bound_max"] <= 1.0, "gate D3 fails: worker "
+            f"{d3['worst_leaf'][0]} {d3['worst_leaf'][1]} at "
+            f"{d3['ratio_to_bound_max']} of its bound")
     return d1_counts
+
+
+def trim_host() -> None:
+    """Hand the heap's freed pages back to the system (glibc
+    ``malloc_trim``): the mesh phases free gigabytes in 256 KiB blocks that
+    the process would otherwise keep, and the collab phase's numpy outer
+    state needs that host memory."""
+    import ctypes
+
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
 def release(torch, before: str) -> None:
@@ -3553,6 +3568,7 @@ def main() -> int:
     del fetched, reference
     gc.collect()
     torch.cuda.empty_cache()
+    trim_host()
     collab_phase(torch, t_main)
     emit({"phase": "done", "seconds": time.perf_counter() - t_main})
 
