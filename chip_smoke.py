@@ -139,12 +139,14 @@ Phases, each printed as one JSON object per line:
    symmetric NAT and served beside the lead's tree (D4); a
    ``LatticaSyncTrainer`` publishing every step and a ``ModelSubscriber``
    behind a symmetric NAT following it onto the card (D5); last, a
-   reduced round on the card against the CPU (D3), held after the line
-   is printed.  The line carries the card's name and power limit, the
-   outer digest, each worker's stats and wire ratio, the inner losses,
-   D3's worst ratio to its bound, the simulated seconds, connection path
-   and leak audits, each stage's wall seconds and peak host RSS, the
-   card's peak memory of D1, D4 and D5, and the launch counts.
+   reduced round on the card against the CPU and its TF32 control (D3),
+   held after the line is printed.  The line carries the card's name and
+   power limit, the outer digest, each worker's stats and wire ratio, the
+   inner losses, D1's calls and seconds by function (the inner steps, the
+   numpy outer math, the rest), D3's worst ratios to their bounds and the
+   control's, the simulated seconds, connection path and leak audits,
+   each stage's wall seconds and peak host RSS, the card's peak memory of
+   D1, D4 and D5, and the launch counts.
 
 The mlstm phase (after moe_gating) holds the mLSTM kernel to gate G1 at
 xlstm-1.3b's widths and reports its two kernels' ptxas registers, spills
@@ -301,11 +303,20 @@ no warmup:
   on the CPU.
 * D3, card against CPU: a reduced minicpm-2b (``T2_REDUCED``), two
   workers, one round of 2 steps at S=2048 from one init and one batch
-  stream, on the card in fp32 and on the CPU in fp32 and float64: each
-  worker's round-0 pseudo-gradient before compression, per leaf over its
-  largest |cpu64| entry, max|card32 - cpu64| <= max(1e-4, 2 max|cpu32 -
-  cpu64|).  The card run launches the flash forward and backward once per
-  layer per step, the CPU runs never.
+  stream, on the card in fp32 and on the CPU in fp32 and float64, in
+  T2's form per leaf over its largest |cpu64| entry, max|card32 - cpu64|
+  <= max(1e-4, 2 max|cpu32 - cpu64|): D3a, each step's gradient before
+  clipping (each run on its own trajectory); D3b, each worker's round-0
+  pseudo-gradient against the port's clip and AdamW replayed on the CPU
+  in float64 on the card's own gradients (the float32 replay standing for
+  cpu32).  The pseudo-gradients of the three runs are not compared with
+  each other: AdamW divides each element by its own magnitude plus 1e-8,
+  which turns the rounding of an element far below its leaf's largest
+  into a large share of the lr (the first form of D3, held before this
+  one, read 8.46 of its bound for that reason).  The card run launches
+  the flash forward and backward once per layer per step, the CPU runs
+  never; a control round on the card with TF32 matmuls allowed must read
+  over D3a's bound.
 * D4, publish, fetch, serve: the lead publishes ``outer_params()`` as
   step 2; an edge behind a symmetric NAT runs ``fetch_latest_from`` into
   a fresh init on the card: its step is the registry's latest, every leaf
@@ -2298,6 +2309,36 @@ def _rss_stage(stages, name, fn):
     return out
 
 
+@contextlib.contextmanager
+def call_seconds(table, targets, sync=None):
+    """While the block runs, each ``(owner, attribute)`` of ``targets`` is
+    timed: its calls and wall seconds add up in ``table`` under the
+    attribute's name, ``sync()`` (the card's, when given) run before the
+    clock is read, so that a call's queued device work counts as its
+    own."""
+    saved = []
+    for owner, attr in targets:
+        fn = getattr(owner, attr)
+
+        def timed(*args, _fn=fn, _name=attr, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                if sync is not None:
+                    sync()
+                row = table.setdefault(_name, {"calls": 0, "s": 0.0})
+                row["calls"] += 1
+                row["s"] += time.perf_counter() - t0
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+    try:
+        yield table
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
 def served_prompts(cfg, lengths=CKPT_PROMPTS):
     """Gates C4's, M3's and F1's prompts (D4's with ``lengths``):
     ``lengths`` tokens each, from a seeded generator."""
@@ -3182,17 +3223,85 @@ def collab_run(fleet, workers, rounds):
     return applied
 
 
-def collab_parity(torch, cfg, device="cuda"):
-    """Gate D3: two workers, one round of ``COLLAB_INNER`` steps at
-    S=2048, from one init (``cfg``, seed ``COLLAB_SEED``) crossed to the
-    card (``device``) in fp32 and to the CPU in fp32 and float64, on the
-    same batches.  Each worker's round-0 pseudo-gradient before
-    compression, per leaf over its largest |cpu64| entry: max|card32 -
-    cpu64| <= max(1e-4, 2 max|cpu32 - cpu64|).  The float64 run's is its
-    start minus its end in float64.  On the card, the card run launches
-    the flash forward and backward once per layer per inner step, the CPU
-    runs never.  Returns the readings, every leaf over its bound among
-    them; the caller holds the bound."""
+def _d3_ratios(runs, key):
+    """T2's form per entry of ``runs[...]`` (name -> float64 tensor), with
+    ``s`` the entry's largest |cpu64|: max|card32 - cpu64| / max(1e-4 s,
+    2 max|cpu32 - cpu64|).  Returns (ratio, *key, name) tuples."""
+    out = []
+    for name in sorted(runs["cpu64"]):
+        a, b, c = (runs[r][name] for r in ("card32", "cpu32", "cpu64"))
+        scale = c.abs().max().item()
+        require(scale > 0, f"D3: {key} {name}: all zero")
+        err = (a - c).abs().max().item() / scale
+        bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
+        out.append((err / bound, *key, name))
+    return out
+
+
+def _recording(step_fn, log):
+    """``step_fn`` with the gradient that each call clips appended to
+    ``log`` (float64 CPU copies by leaf name), taken before the clip
+    scales it in place: the gradients that the step's AdamW update used."""
+    import torch
+
+    from repro_torch.train import step as step_mod
+
+    def run(state, batch):
+        clip = step_mod.clip_by_global_norm
+
+        def kept(grads, max_norm):
+            log.append({n: g.detach().to("cpu", torch.float64, copy=True)
+                        for n, g in named_leaves(grads, sep="/")})
+            return clip(grads, max_norm)
+        step_mod.clip_by_global_norm = kept
+        try:
+            return step_fn(state, batch)
+        finally:
+            step_mod.clip_by_global_norm = clip
+    return run
+
+
+def adamw_replay(torch, base, grads, dtype):
+    """The collab workers' clip and AdamW update (max norm 1, decay 0.1,
+    ``cosine_schedule(COLLAB_LR, 0, 100)``) applied on the CPU in numpy
+    ``dtype`` to ``grads`` (one dict by leaf name per step) from the numpy
+    tree ``base``: the pseudo-gradient, start minus end, by leaf name as
+    float64 tensors (a float32 replay's rounded to float32, as
+    ``pseudo_gradient`` rounds it)."""
+    import numpy as np
+
+    from repro_torch.optim import (adamw_init, adamw_update,
+                                   clip_by_global_norm, cosine_schedule)
+    from repro_torch.params import params_from_numpy
+    from repro_torch.tree import unflatten
+
+    params = params_from_numpy(_cast_tree(base, dtype), "cpu")
+    names = [n for n, _ in named_leaves(params, sep="/")]
+    opt = adamw_init(params)
+    sched = cosine_schedule(COLLAB_LR, 0, 100)
+    for g in grads:
+        # copies: the clip scales its gradients in place
+        clipped, _ = clip_by_global_norm(unflatten(params, [
+            g[n].to(torch.float64 if dtype == np.float64 else torch.float32,
+                    copy=True) for n in names]), 1.0)
+        opt = adamw_update(params, clipped, opt, sched(opt.step),
+                           weight_decay=0.1)
+    start = dict(named_leaves(base, sep="/"))
+    out = {}
+    for name, t in named_leaves(params, sep="/"):
+        d = torch.from_numpy(np.asarray(start[name], np.float64)) - t.double()
+        out[name] = d.float().double() if dtype == np.float32 else d
+    return out
+
+
+def collab_round_runs(torch, cfg, runs, tf32=False):
+    """One collab round of two workers (``cfg``, init seed ``COLLAB_SEED``,
+    ``COLLAB_INNER`` steps at ``COLLAB_SEQ``) for each ``(name, device,
+    numpy dtype)`` of ``runs``, on the same batches; with ``tf32``, TF32
+    matmuls are allowed during the round.  Returns the numpy init and, by
+    run name, its launch counts and per worker the gradients each step
+    used (``_recording``) and the round's pseudo-gradient, start minus
+    end, by leaf name as float64 tensors."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -3206,10 +3315,8 @@ def collab_parity(torch, cfg, device="cuda"):
     base = params_to_numpy(decoder.init_params(
         cfg, torch.Generator().manual_seed(COLLAB_SEED), "cpu"))
     mesh = port_mesh()
-    runs, counts = {}, {}
-    for name, dev, dt in (("card32", device, np.float32),
-                          ("cpu32", "cpu", np.float32),
-                          ("cpu64", "cpu", np.float64)):
+    out = {}
+    for name, dev, dt in runs:
         states = []
         for _ in range(COLLAB_WORKERS):
             params = params_from_numpy(_cast_tree(base, dt), dev)
@@ -3218,48 +3325,118 @@ def collab_parity(torch, cfg, device="cuda"):
             states.append(TrainState(params, adamw_init(params)))
         fleet = collab_fleet(mesh)
         workers = collab_workers(cfg, fleet, states)
+        logs = [[] for _ in workers]
+        for w, log in zip(workers, logs):
+            w.step_fn = _recording(w.step_fn, log)
         start = {k: v.copy() for k, v in workers[0].outer_flat.items()}
         ops.reset_launch_counts()
-        require(collab_run(fleet, workers, 1) == [1] * COLLAB_WORKERS,
+        matmul = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            closed = collab_run(fleet, workers, 1)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+        require(closed == [1] * COLLAB_WORKERS,
                 f"D3: a {name} worker did not close its round")
-        counts[name] = ops.launch_counts()
-        grads = []
+        pgs = []
         for w in workers:
             if dt == np.float64:
                 end = dict(named_leaves(w._state.params, sep="/"))
-                grads.append({k: torch.from_numpy(v).double()
-                              - end[k].detach() for k, v in start.items()})
+                pgs.append({k: torch.from_numpy(v).double()
+                            - end[k].detach().cpu() for k, v in start.items()})
             else:
-                grads.append({k: torch.from_numpy(v).double() for k, v in
-                              pseudo_gradient(start, tree_to_flat(
-                                  w._state.params)).items()})
-        runs[name] = grads
+                pgs.append({k: torch.from_numpy(v).double() for k, v in
+                            pseudo_gradient(start, tree_to_flat(
+                                w._state.params)).items()})
+        out[name] = {"launches": ops.launch_counts(), "pg": pgs,
+                     "grads": logs}
         del workers, fleet, states
+    return base, out
+
+
+def collab_parity(torch, cfg, device="cuda"):
+    """Gate D3: two workers, one round of ``COLLAB_INNER`` steps at
+    S=2048, from one init (``cfg``, seed ``COLLAB_SEED``) crossed to the
+    card (``device``) in fp32 and to the CPU in fp32 and float64, on the
+    same batches, each held in T2's form per leaf (``_d3_ratios``):
+
+    * D3a, the gradients: each step's gradient before clipping, each run
+      on its own trajectory, card32 against cpu32 and cpu64;
+    * D3b, the update: the card's pseudo-gradient against the port's clip
+      and AdamW replayed on the CPU in float64 on the card's own
+      gradients, the same replay in float32 standing for cpu32.
+
+    The round's pseudo-gradient is not compared across runs: AdamW divides
+    each element's first moment by its own magnitude plus 1e-8, so the
+    rounding of an element far below its leaf's largest moves that
+    element's update by a share of the lr that no bound on the gradient's
+    error limits.  D3a holds what the card computes before that division,
+    D3b the division and the update.  On the card, the card run launches
+    the flash forward and backward once per layer per step and the CPU
+    runs never, and a control round on the card with TF32 matmuls allowed
+    is read under D3a, where it must fail.  Returns the readings; the
+    caller holds them."""
+    import numpy as np
+
+    runs = [("card32", device, np.float32), ("cpu32", "cpu", np.float32),
+            ("cpu64", "cpu", np.float64)]
+    base, got = collab_round_runs(torch, cfg, runs)
     if device == "cuda":
-        want = {k: 0 for k in counts["card32"]}
+        want = {k: 0 for k in got["card32"]["launches"]}
         want["flash_attention"] = want["flash_attention_bwd"] = (
             cfg.n_layers * COLLAB_INNER * COLLAB_WORKERS)
-        require(counts["card32"] == want, f"D3: card launches "
-                f"{counts['card32']} != {want}")
-        require(not any(counts["cpu32"].values())
-                and not any(counts["cpu64"].values()),
+        require(got["card32"]["launches"] == want, f"D3: card launches "
+                f"{got['card32']['launches']} != {want}")
+        require(not any(got["cpu32"]["launches"].values())
+                and not any(got["cpu64"]["launches"].values()),
                 "D3: the CPU runs launched kernels")
-    ratios = []
+
+    def grad_ratios(card):
+        rows = []
+        for i in range(COLLAB_WORKERS):
+            for k in range(COLLAB_INNER):
+                rows += _d3_ratios({
+                    "card32": card["grads"][i][k],
+                    "cpu32": got["cpu32"]["grads"][i][k],
+                    "cpu64": got["cpu64"]["grads"][i][k]}, (i, k))
+        return rows
+
+    def reading(rows):
+        worst = max(rows)
+        return {"ratio_to_bound_max": worst[0], "worst": list(worst[1:]),
+                "over_bound": [list(r) for r in sorted(rows, reverse=True)
+                               if r[0] > 1.0], "readings": len(rows)}
+
+    update = []
     for i in range(COLLAB_WORKERS):
-        for k in sorted(runs["cpu64"][i]):
-            a, b, c = (runs[r][i][k] for r in ("card32", "cpu32", "cpu64"))
-            scale = c.abs().max().item()
-            require(scale > 0, f"D3: worker {i} {k}: a zero pseudo-gradient")
-            err = (a - c).abs().max().item() / scale
-            bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
-            ratios.append((err / bound, i, k))
-    worst = max(ratios)
-    return {"config": f"minicpm-2b reduced(L={cfg.n_layers}, "
-                      f"d={cfg.d_model}, vocab={cfg.vocab})",
-            "ratio_to_bound_max": worst[0], "worst_leaf": list(worst[1:]),
-            "over_bound": [list(r) for r in sorted(ratios, reverse=True)
-                           if r[0] > 1.0],
-            "leaves": len(ratios), "launches": counts}
+        shared = got["card32"]["grads"][i]
+        update += _d3_ratios({
+            "card32": got["card32"]["pg"][i],
+            "cpu32": adamw_replay(torch, base, shared, np.float32),
+            "cpu64": adamw_replay(torch, base, shared, np.float64)}, (i,))
+    out = {"config": f"minicpm-2b reduced(L={cfg.n_layers}, "
+                     f"d={cfg.d_model}, vocab={cfg.vocab})",
+           "grads": reading(grad_ratios(got["card32"])),
+           "update": reading(update),
+           "launches": {r: g["launches"] for r, g in got.items()}}
+    if device == "cuda":
+        _, ctl = collab_round_runs(torch, cfg, runs[:1], tf32=True)
+        control = reading(grad_ratios(ctl["card32"]))
+        control["over_bound"] = len(control["over_bound"])
+        out["control_tf32"] = control
+    return out
+
+
+def collab_parity_holds(d3) -> None:
+    """Gate D3's verdict on ``collab_parity``'s readings."""
+    for part in ("grads", "update"):
+        r = d3[part]
+        require(r["ratio_to_bound_max"] <= 1.0, f"gate D3 fails: {part} "
+                f"{r['worst']} at {r['ratio_to_bound_max']} of its bound")
+    if "control_tf32" in d3:
+        r = d3["control_tf32"]
+        require(r["ratio_to_bound_max"] > 1.0, "D3's control passed: the "
+                f"TF32 round read {r['ratio_to_bound_max']} of D3a's bound")
 
 
 def collab_phase(torch, t_main, device="cuda", cfg=None, parity_cfg=None):
@@ -3331,8 +3508,18 @@ def collab_phase(torch, t_main, device="cuda", cfg=None, parity_cfg=None):
         for _ in range(COLLAB_WORKERS)])
     ops.reset_launch_counts()
     t_sim = sim.now
-    applied = _rss_stage(stages, "d1", lambda: collab_run(
-        fleet, workers, COLLAB_ROUNDS))
+    d1_calls = {}
+    timed = [(collab, n) for n in (
+        "tree_to_flat", "pseudo_gradient", "compress_pseudograd",
+        "flat_from_entries", "average_flat")]
+    timed += [(collab.CollabWorker, "_outer_step")]
+    timed += [(w, "step_fn") for w in workers]
+    with call_seconds(d1_calls, timed,
+                      torch.cuda.synchronize if on_card else None):
+        applied = _rss_stage(stages, "d1", lambda: collab_run(
+            fleet, workers, COLLAB_ROUNDS))
+    d1_calls["rest"] = {"s": stages["d1"]["s"] - sum(
+        v["s"] for v in d1_calls.values())}
     d1_sim_s = sim.now - t_sim
     d1_counts = ops.launch_counts()
     require(applied == [COLLAB_ROUNDS] * COLLAB_WORKERS
@@ -3474,7 +3661,8 @@ def collab_phase(torch, t_main, device="cuda", cfg=None, parity_cfg=None):
           "params": n_params,
           "d1": {"digest": digests[0], "wire_ratio": ratios,
                  "stats": d1_stats, "inner_loss": d1_rounds,
-                 "sim_s": d1_sim_s, "leaks_held": d1_held, "nat": nat},
+                 "sim_s": d1_sim_s, "leaks_held": d1_held, "nat": nat,
+                 "calls": d1_calls},
           "d2": d2, "d3": d3,
           "d4": {"root": cid_hex(root), "path": d4_path,
                  "leaks": d4_leaks,
@@ -3487,9 +3675,7 @@ def collab_phase(torch, t_main, device="cuda", cfg=None, parity_cfg=None):
           "max_memory_allocated_bytes": {"d1": d1_peak, "d4": d4_peak,
                                          "d5": d5_peak},
           "smoke_s": time.perf_counter() - t_main})
-    require(d3["ratio_to_bound_max"] <= 1.0, "gate D3 fails: worker "
-            f"{d3['worst_leaf'][0]} {d3['worst_leaf'][1]} at "
-            f"{d3['ratio_to_bound_max']} of its bound")
+    collab_parity_holds(d3)
     return d1_counts
 
 

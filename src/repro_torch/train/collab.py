@@ -5,11 +5,13 @@ it as a syntax tree by ``tests/test_torch_collab.py``.  The inner steps
 run the port's ``make_train_step`` on the device of the worker's
 parameters, the eval loss runs under ``torch.no_grad()``, and the round
 start rebuilds the parameters from the numpy outer state as fresh
-tensors on the device and in the dtype of the worker's first tree
+tensors on the device and in the dtype of the worker's current tree
 (``_params_like``): the port's AdamW updates parameters in place, so a
 leaf that shared memory with ``start_flat`` would overwrite the round's
 start and zero its pseudo-gradient.  The AdamW moments carry over from
-round to round, as in the reference.  The outer math is the same numpy.
+round to round, as in the reference.  The outer math is the same numpy,
+the outer step's evaluated over blocks of entries as the pseudo-gradient's
+(``compress._blockwise``), to the same bits.
 
 Each worker trains locally for ``inner_steps`` (H) AdamW steps, then
 publishes its **pseudo-gradient** — the outer delta ``theta_round_start -
@@ -74,8 +76,9 @@ from ..models import ops_for
 from ..models.config import ModelConfig
 from ..tree import leaves
 
-from .compress import (average_flat, compress_pseudograd, flat_digest,
-                       flat_from_entries, pseudo_gradient, tree_to_flat)
+from .compress import (_blockwise, average_flat, compress_pseudograd,
+                       flat_digest, flat_from_entries, pseudo_gradient,
+                       tree_to_flat)
 from .step import TrainState, make_train_step
 
 __all__ = ["CollabConfig", "CollabService", "CollabWorker", "serve_collab"]
@@ -186,7 +189,6 @@ class CollabWorker:
         self.name = node.host.name
         self.step_seconds = step_seconds
         self.data = data
-        self._like = state.params
         self._state = state
         self.step_fn = make_train_step(cfg, schedule)
         ops = ops_for(cfg)
@@ -247,7 +249,7 @@ class CollabWorker:
 
     def outer_params(self) -> Any:
         """Outer params in the model's pytree structure (for eval/ckpt)."""
-        return _params_like(self.outer_flat, self._like)
+        return _params_like(self.outer_flat, self._state.params)
 
     def overdue_pins(self) -> int:
         """Contribution roots still pinned past the replay window — the
@@ -295,7 +297,8 @@ class CollabWorker:
         # -- inner phase: H local AdamW steps from the replicated outer state
         start_flat = {k: v.copy() for k, v in self.outer_flat.items()}
         self._state = TrainState(
-            params=_params_like(start_flat, self._like, trainable=True),
+            params=_params_like(start_flat, self._state.params,
+                                trainable=True),
             opt=self._state.opt)
         for i in range(self.ccfg.inner_steps):
             if not self.alive:
@@ -411,14 +414,16 @@ class CollabWorker:
 
     def _outer_step(self, g: Dict[str, np.ndarray]) -> None:
         lr, mu = self.ccfg.outer_lr, self.ccfg.outer_momentum
+
+        def step(p: np.ndarray, mom: np.ndarray, g: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+            m = mu * mom.astype(np.float64) + g.astype(np.float64)
+            upd = g.astype(np.float64) + mu * m if self.ccfg.nesterov else m
+            return ((p.astype(np.float64) - lr * upd).astype(np.float32),
+                    m.astype(np.float32))
         for k in sorted(g):
-            m = mu * self.outer_mom[k].astype(np.float64) \
-                + g[k].astype(np.float64)
-            upd = g[k].astype(np.float64) + mu * m if self.ccfg.nesterov else m
-            self.outer_flat[k] = (
-                self.outer_flat[k].astype(np.float64) - lr * upd
-            ).astype(np.float32)
-            self.outer_mom[k] = m.astype(np.float32)
+            self.outer_flat[k], self.outer_mom[k] = _blockwise(
+                step, self.outer_flat[k], self.outer_mom[k], g[k])
 
     def _fetch_contrib(self, r: int, worker: str) -> Generator:
         """Resolve + swarm-fetch one contribution DAG; decode to a flat

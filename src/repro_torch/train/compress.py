@@ -6,7 +6,10 @@ tensors on the card that require grad: they reach the host through
 ``checkpoint.serial._host``, as float32.  The port's ``leaf_from_part``
 returns a CPU tensor; ``sent`` and ``flat_from_entries`` hand back its
 float32 array, as the reference does.  The selection stays
-``np.argpartition``: ``torch.topk`` orders ties otherwise.
+``np.argpartition``: ``torch.topk`` orders ties otherwise.  The float64
+arithmetic of ``pseudo_gradient`` and ``average_flat`` runs over blocks
+of ``_BLOCK`` entries (``_blockwise``): the same operations on each
+element, so the same bits, without whole-leaf float64 temporaries.
 
 A DiLoCo-style round ships each worker's *outer delta* (``theta_round_start
 - theta_after_H_inner_steps``) instead of per-step gradients.  Two lossy
@@ -57,6 +60,30 @@ DEFAULT_TOPK_FRAC = 0.05
 SPARSE_MIN_SIZE = 256
 
 
+#: entries per block of the float64 outer arithmetic, whose temporaries
+#: then stay in cache instead of faulting in whole-leaf float64 arrays
+_BLOCK = 1 << 16
+
+
+def _blockwise(fn: Any, *arrays: np.ndarray) -> Any:
+    """``fn``, elementwise arithmetic on arrays of one shape, evaluated
+    over blocks of ``_BLOCK`` flattened entries into fresh arrays of that
+    shape: the bits of one call on the whole arrays.  Returns ``fn``'s
+    array, or its tuple of arrays."""
+    flat = [a.reshape(-1) for a in arrays]
+    n = flat[0].size
+    outs: List[np.ndarray] = []
+    for lo in range(0, max(n, 1), _BLOCK):
+        got = fn(*(f[lo:lo + _BLOCK] for f in flat))
+        got = got if isinstance(got, tuple) else (got,)
+        if not outs:
+            outs = [np.empty(n, g.dtype) for g in got]
+        for o, g in zip(outs, got):
+            o[lo:lo + _BLOCK] = g
+    shaped = tuple(o.reshape(arrays[0].shape) for o in outs)
+    return shaped if len(shaped) > 1 else shaped[0]
+
+
 def tree_to_flat(params: Any) -> Dict[str, np.ndarray]:
     """``{path: float32 ndarray}`` view of a pytree, sorted-path keyed
     (the :func:`params_to_parts` naming, so flats and parts interconvert)."""
@@ -69,8 +96,9 @@ def pseudo_gradient(start: Dict[str, np.ndarray],
     """Outer delta ``start - end`` per leaf: the direction the inner
     optimizer moved, expressed as a gradient for the outer optimizer
     (which *subtracts* it)."""
-    return {k: (start[k].astype(np.float64)
-                - end[k].astype(np.float64)).astype(np.float32)
+    return {k: _blockwise(lambda s, e: (s.astype(np.float64)
+                                       - e.astype(np.float64)).astype(
+                                           np.float32), start[k], end[k])
             for k in start}
 
 
@@ -147,11 +175,13 @@ def average_flat(grads: List[Dict[str, np.ndarray]],
     if not grads:
         raise ValueError("cannot average zero contributions")
     out: Dict[str, np.ndarray] = {}
+    def mean(*blocks: np.ndarray) -> np.ndarray:
+        acc = np.zeros(blocks[0].shape, np.float64)
+        for b in blocks:
+            acc += b.astype(np.float64)
+        return (acc / len(blocks)).astype(np.float32)
     for k in sorted(grads[0]):
-        acc = np.zeros(grads[0][k].shape, np.float64)
-        for g in grads:
-            acc += g[k].astype(np.float64)
-        out[k] = (acc / len(grads)).astype(np.float32)
+        out[k] = _blockwise(mean, *(g[k] for g in grads))
     return out
 
 

@@ -97,6 +97,33 @@ COPY_LINES = [
      "return {name: leaf_from_part(raw, meta) for name, raw, meta in pairs}",
      "return {name: leaf_from_part(raw, meta).numpy() for name, raw, meta "
      "in pairs}", "a decoded flat is float32 arrays, as the reference's"),
+    ("train/collab.py", "        self._like = state.params\n", "",
+     "no tree is kept for its structure alone: _params_like reads the "
+     "structure, device and dtype of the worker's current tree, so the "
+     "first tree is freed after round 0 instead of staying on the card "
+     "beside the live state"),
+    ("train/compress.py",
+     "    return {k: (start[k].astype(np.float64)\n"
+     "                - end[k].astype(np.float64)).astype(np.float32)\n",
+     "    return {k: _blockwise(lambda s, e: (s.astype(np.float64)\n"
+     "                                       - e.astype(np.float64)).astype(\n"
+     "                                           np.float32), start[k], end[k])\n",
+     "the same float64 difference, in blocks: no whole-leaf float64 "
+     "temporaries (two of 2.3 GB for minicpm-2b's embedding), same bits"),
+    ("train/compress.py",
+     "    for k in sorted(grads[0]):\n"
+     "        acc = np.zeros(grads[0][k].shape, np.float64)\n"
+     "        for g in grads:\n"
+     "            acc += g[k].astype(np.float64)\n"
+     "        out[k] = (acc / len(grads)).astype(np.float32)\n",
+     "    def mean(*blocks: np.ndarray) -> np.ndarray:\n"
+     "        acc = np.zeros(blocks[0].shape, np.float64)\n"
+     "        for b in blocks:\n"
+     "            acc += b.astype(np.float64)\n"
+     "        return (acc / len(blocks)).astype(np.float32)\n"
+     "    for k in sorted(grads[0]):\n"
+     "        out[k] = _blockwise(mean, *(g[k] for g in grads))\n",
+     "the same float64 sum in the same order, in blocks: same bits"),
     ("train/collab.py", "import jax\nimport numpy as np\n",
      "import numpy as np\nimport torch\n",
      "the inner steps run on torch; the outer math stays numpy"),
@@ -104,6 +131,36 @@ COPY_LINES = [
      "from repro.checkpoint.serial import _map_with_path\n"
      "from repro.core.bitswap import FetchError\n",
      "imports _map_with_path for _params_like"),
+    ("train/collab.py",
+     "from .compress import (average_flat, compress_pseudograd, flat_digest,\n"
+     "                       flat_from_entries, pseudo_gradient, tree_to_flat)\n",
+     "from .compress import (_blockwise, average_flat, compress_pseudograd,\n"
+     "                       flat_digest, flat_from_entries, pseudo_gradient,\n"
+     "                       tree_to_flat)\n", "imports _blockwise"),
+    ("train/collab.py",
+     "        for k in sorted(g):\n"
+     "            m = mu * self.outer_mom[k].astype(np.float64) \\\n"
+     "                + g[k].astype(np.float64)\n"
+     "            upd = g[k].astype(np.float64) + mu * m if self.ccfg.nesterov "
+     "else m\n"
+     "            self.outer_flat[k] = (\n"
+     "                self.outer_flat[k].astype(np.float64) - lr * upd\n"
+     "            ).astype(np.float32)\n"
+     "            self.outer_mom[k] = m.astype(np.float32)\n",
+     "\n"
+     "        def step(p: np.ndarray, mom: np.ndarray, g: np.ndarray\n"
+     "                 ) -> Tuple[np.ndarray, np.ndarray]:\n"
+     "            m = mu * mom.astype(np.float64) + g.astype(np.float64)\n"
+     "            upd = g.astype(np.float64) + mu * m if self.ccfg.nesterov "
+     "else m\n"
+     "            return ((p.astype(np.float64) - lr * upd).astype("
+     "np.float32),\n"
+     "                    m.astype(np.float32))\n"
+     "        for k in sorted(g):\n"
+     "            self.outer_flat[k], self.outer_mom[k] = _blockwise(\n"
+     "                step, self.outer_flat[k], self.outer_mom[k], g[k])\n",
+     "the same Nesterov step in float64, in blocks: no whole-leaf float64 "
+     "temporaries, same bits"),
     ("train/collab.py", "from repro.models.config import ModelConfig\n",
      "from repro.models.config import ModelConfig\n"
      "from repro.tree import leaves\n", "imports leaves for _eval_loss"),
@@ -119,16 +176,16 @@ COPY_LINES = [
     ("train/collab.py",
      "        from repro.checkpoint.serial import params_from_parts\n"
      "        return params_from_parts(dict(self.outer_flat), self._like)\n",
-     "        return _params_like(self.outer_flat, self._like)\n",
-     "the outer params as fresh tensors on the device of the worker's first "
-     "tree; the port's params_from_parts takes tensors, not arrays"),
+     "        return _params_like(self.outer_flat, self._state.params)\n",
+     "the outer params as fresh tensors on the device of the worker's "
+     "current tree; the port's params_from_parts takes tensors, not arrays"),
     ("train/collab.py",
      "        from repro.checkpoint.serial import params_from_parts\n"
      "        self._state = TrainState(\n"
      "            params=params_from_parts(dict(start_flat), self._like),\n",
      "        self._state = TrainState(\n"
-     "            params=_params_like(start_flat, self._like, "
-     "trainable=True),\n",
+     "            params=_params_like(start_flat, self._state.params,\n"
+     "                                trainable=True),\n",
      "the round's start as fresh leaves that require grad: the port's AdamW "
      "updates them in place, so leaves sharing memory with start_flat "
      "would overwrite the round's start and zero its pseudo-gradient"),
@@ -136,9 +193,14 @@ COPY_LINES = [
 
 #: top-level definitions a copy adds: (file, name, reason)
 COPY_ADDED = [
+    ("train/compress.py", "_BLOCK",
+     "entries per block of the float64 outer arithmetic"),
+    ("train/compress.py", "_blockwise",
+     "elementwise numpy over blocks of entries, to the bits of one "
+     "whole-array call"),
     ("train/collab.py", "_params_like",
      "numpy outer state -> fresh tensors in the structure, device and dtype "
-     "of the worker's first tree"),
+     "of the worker's current tree"),
     ("train/collab.py", "_eval_loss",
      "the eval loss of a numpy batch under torch.no_grad()"),
 ]
@@ -292,6 +354,35 @@ def test_decode_average_digest_and_outer_step_match_jax(nesterov):
             outer_mom={k: np.full_like(v, 0.25) for k, v in start.items()})
         for _ in range(2):
             cls._outer_step(w, javg)
+        outs.append(w)
+    _same_flat(outs[1].outer_flat, outs[0].outer_flat)
+    _same_flat(outs[1].outer_mom, outs[0].outer_mom)
+
+
+@pytest.mark.parametrize("block", [1000, 4096])
+def test_blockwise_outer_math_matches_jax(monkeypatch, block):
+    """With blocks smaller than the leaves (a partial last block
+    included), the port's pseudo-gradient, average and outer step are the
+    JAX package's whole-array ones, to the bit."""
+    from repro.train import compress as jc
+    from repro.train.collab import CollabWorker as JaxWorker
+    from repro_torch.train import compress as pc
+    from repro_torch.train.collab import CollabWorker
+    monkeypatch.setattr(pc, "_BLOCK", block)
+    start, end = _grads(9), _grads(10)
+    grads = [pc.pseudo_gradient(start, end), _grads(11)]
+    _same_flat(grads[0], jc.pseudo_gradient(start, end))
+    avg = pc.average_flat(grads)
+    _same_flat(avg, jc.average_flat(grads))
+    outs = []
+    for cls in (JaxWorker, CollabWorker):
+        w = SimpleNamespace(
+            ccfg=SimpleNamespace(outer_lr=0.7, outer_momentum=0.9,
+                                 nesterov=True),
+            outer_flat=dict(start),
+            outer_mom={k: np.full_like(v, 0.25) for k, v in start.items()})
+        for _ in range(2):
+            cls._outer_step(w, avg)
         outs.append(w)
     _same_flat(outs[1].outer_flat, outs[0].outer_flat)
     _same_flat(outs[1].outer_mom, outs[0].outer_mom)
@@ -1065,7 +1156,16 @@ def test_collab_phase_rehearses_on_the_cpu(monkeypatch):
     (line,) = lines
     assert line["phase"] == "collab"
     assert line["d2"] == chip_smoke.COLLAB_GOLDEN
-    assert line["d3"]["ratio_to_bound_max"] <= 1.0
+    for part in ("grads", "update"):
+        assert line["d3"][part]["ratio_to_bound_max"] <= 1.0, part
+    assert line["d3"]["grads"]["readings"] == \
+        chip_smoke.COLLAB_INNER * line["d3"]["update"]["readings"]
+    assert "control_tf32" not in line["d3"]
+    calls = line["d1"]["calls"]
+    assert calls["step_fn"]["calls"] == chip_smoke.COLLAB_WORKERS * \
+        chip_smoke.COLLAB_ROUNDS * chip_smoke.COLLAB_INNER
+    assert calls["_outer_step"]["calls"] == chip_smoke.COLLAB_WORKERS * \
+        chip_smoke.COLLAB_ROUNDS
     taken = chip_smoke.COLLAB_WORKERS * chip_smoke.COLLAB_ROUNDS * \
         chip_smoke.COLLAB_INNER
     assert line["launches"]["d1"]["flash_attention_bwd"] == 2 * taken
@@ -1076,3 +1176,56 @@ def test_collab_phase_rehearses_on_the_cpu(monkeypatch):
     assert max(line["d1"]["wire_ratio"]) <= chip_smoke.COLLAB_WIRE_RATIO
     assert [f["step"] for f in line["d5"]["fetch_log"]][-1] == \
         chip_smoke.COLLAB_SYNC_STEPS
+
+
+def test_d3_update_check_sees_a_wrong_weight_decay(monkeypatch):
+    """Gate D3b has teeth: when the workers' AdamW decays by 0.11 instead
+    of the step's 0.1 (in every run, so that D3a's gradients still agree),
+    the card run's pseudo-gradient against the update replayed with 0.1
+    reads over its bound; with the right decay it reads within."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import step as step_mod
+
+    monkeypatch.setattr(chip_smoke, "COLLAB_SEQ", 64)
+    cfg = get_config("minicpm-2b").reduced(**SMALL)
+    right = chip_smoke.collab_parity(torch, cfg, device="cpu")
+    assert right["update"]["ratio_to_bound_max"] <= 1.0
+    assert right["grads"]["ratio_to_bound_max"] <= 1.0
+
+    def decays_more(*args, _fn=step_mod.adamw_update, **kwargs):
+        kwargs["weight_decay"] = 0.11
+        return _fn(*args, **kwargs)
+    monkeypatch.setattr(step_mod, "adamw_update", decays_more)
+    wrong = chip_smoke.collab_parity(torch, cfg, device="cpu")
+    assert wrong["grads"]["ratio_to_bound_max"] <= 1.0
+    assert wrong["update"]["ratio_to_bound_max"] > 1.0
+    assert len(wrong["update"]["over_bound"]) == wrong["update"]["readings"]
+
+
+def test_d3_records_the_unclipped_gradients(monkeypatch):
+    """Gate D3 holds the gradients each step clipped as they were before
+    the clip: the float32 and float64 runs' first-step gradients, from one
+    start, agree within 1e-5 of each leaf's largest (a record that shared
+    memory with the gradient would hold the float64 run's clipped one),
+    and replaying the update leaves the record as it was."""
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    monkeypatch.setattr(chip_smoke, "COLLAB_SEQ", 64)
+    cfg = get_config("minicpm-2b").reduced(**SMALL)
+    base, got = chip_smoke.collab_round_runs(
+        torch, cfg, [("cpu32", "cpu", np.float32),
+                     ("cpu64", "cpu", np.float64)])
+    for i in range(chip_smoke.COLLAB_WORKERS):
+        g32, g64 = got["cpu32"]["grads"][i][0], got["cpu64"]["grads"][i][0]
+        for name, t in g64.items():
+            assert t.dtype == torch.float64
+            scale = t.abs().max().item()
+            assert (g32[name] - t).abs().max().item() <= 1e-5 * scale, name
+        for run in ("cpu32", "cpu64"):
+            kept = got[run]["grads"][i]
+            before = [{n: t.clone() for n, t in g.items()} for g in kept]
+            for dtype in (np.float32, np.float64):
+                chip_smoke.adamw_replay(torch, base, kept, dtype)
+            for g, b in zip(kept, before):
+                assert all(torch.equal(g[n], b[n]) for n in b)
