@@ -38,11 +38,13 @@ Phases, each printed as one JSON object per line:
    beside it as a yardstick only, and the kernel's ptxas registers,
    spills and shared memory;
    flash_backward — the backward kernel under gate T1 over
-   ``FLASH_BWD_CASES``, two launches bit-equal, the forward's lse within
-   1e-5 of the plain version's; timed with a cold L2 at minicpm-2b's
-   (B=1, H=36, S=2048, hd=64) and granite-8b's (H=32, hd=128) causal
-   shape beside its operations bound, the plain version and the backward
-   of ``scaled_dot_product_attention`` (a yardstick only);
+   ``FLASH_BWD_CASES`` (each case's reading over its bound), two launches
+   bit-equal, the forward's lse within 1e-5 of the plain version's; timed
+   with a cold L2 at minicpm-2b's (B=1, H=36, S=2048, hd=64) and
+   granite-8b's (H=32, hd=128) causal shape beside its operations bound,
+   the design's 3xTF32 floor, the plain version and the backward of
+   ``scaled_dot_product_attention`` (a yardstick only), and its kernels'
+   ptxas registers, spills and shared memory;
 5. moe_gating — the logits-in gating kernel (off the main path since the
    router product was folded in) at T in {1, 8, 2048, 2050} and (E, K) in
    {(60, 4), (16, 4), (64, 8)}, plus duplicated logit columns (ties),
@@ -858,9 +860,11 @@ def flash_backward_phase(torch, flush, build_log: str):
             err = (a.double() - c).abs().max().item()
             err32 = (b.double() - c).abs().max().item()
             bound = 2 * err32 + 1e-6 * c.abs().max().item()
-            res[part] = {"err": err, "err_fp32_plain": err32, "bound": bound}
+            res[part] = {"err": err, "err_fp32_plain": err32, "bound": bound,
+                         "ratio": err / bound}
             require(err <= bound, f"gate T1 fails: {name} {part} {err} > "
                     f"{bound}")
+        res["t1_ratio"] = max(res[p]["ratio"] for p in ("dq", "dk", "dv"))
         require(res["repeat_bit_equal"], f"T1 {name}: two launches differ")
         require(res["lse_abs_err"] <= 1e-5,
                 f"T1 {name}: lse err {res['lse_abs_err']} > 1e-5")
@@ -870,9 +874,11 @@ def flash_backward_phase(torch, flush, build_log: str):
         """Kernel, plain and SDPA-backward times at a causal S, and the
         bound: the backward's five products over the visible pairs at the
         TF32 peak, against its bytes (q, k, v, out, dO, lse read, dq, dk,
-        dv written)."""
+        dv written); beside it the design's own floor, its 7 products a
+        pair (S and dP in both passes) in 3xTF32 at the TF32 peak."""
         args = flash_bwd_inputs(torch, B, H, S, S, hd, True, 0, g)
-        flops = 10 * B * H * hd * (S * (S + 1) // 2)
+        pairs = B * H * (S * (S + 1) // 2)
+        flops = 10 * hd * pairs
         nbytes = 4 * (8 * B * H * S * hd + B * H * S)
         qs, ks, vs = (a.detach().requires_grad_(True) for a in args[:3])
         o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
@@ -886,6 +892,8 @@ def flash_backward_phase(torch, flush, build_log: str):
                                                    retain_graph=True),
                 flush=flush),
             "flops": flops, "bytes": nbytes,
+            "bound_3xtf32_ms": 3 * 7 * 2 * hd * pairs / PEAK_FLOPS["float32"]
+            * 1e3,
             "bound_ms": max(flops / PEAK_FLOPS["float32"],
                             nbytes / HBM_BYTES_PER_S) * 1e3}
         res["bound_by"] = ("operations" if flops / PEAK_FLOPS["float32"]
@@ -900,6 +908,7 @@ def flash_backward_phase(torch, flush, build_log: str):
                               for p in ("dq", "dk", "dv")),
            "max_abs_err_minicpm": max(cases["minicpm"][p]["err"]
                                       for p in ("dq", "dk", "dv")),
+           "t1_ratio": max(c["t1_ratio"] for c in cases.values()),
            "minicpm": timed(1, 36, 2048, 64), "granite": timed(1, 32, 2048, 128),
            "ptxas": flash_bwd_ptxas(build_log),
            "dynamic_smem_bytes": {f"hd{d}": {"dkdv": smem(d, 0), "dq": smem(d, 1)}

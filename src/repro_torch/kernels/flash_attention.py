@@ -173,6 +173,13 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention_cuda: {msg}")
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Rows start on 16 bytes: the data pointer and every (b, h, s) stride
+    of a dim longer than 1 (in elements, fp32) a multiple of 4."""
+    return t.data_ptr() % 16 == 0 and all(
+        s % 4 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          return_lse: bool = False):
@@ -225,8 +232,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same contract as :func:`flash_attention_bwd_plain`, on the card, fp32
     only.  Strided views are taken as they are (the last dim must be
-    dense; a ``dout`` whose last dim is not is copied once); dq, dk, dv
-    have q's, k's and v's memory layouts."""
+    dense; a ``dout`` whose last dim is not is copied once, and so is any
+    of q, k, v, dout whose rows are not 16-byte aligned, since the kernel
+    stages rows by 16-byte copies); dq, dk, dv have q's, k's and v's
+    memory layouts."""
     global bwd_launches
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
@@ -249,6 +258,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    q, k, v, dout = (t if _rows_aligned(t) else t.clone()
+                     for t in (q, k, v, dout))
     D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
