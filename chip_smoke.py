@@ -40,8 +40,9 @@ Phases, each printed as one JSON object per line:
    flash_backward — the backward kernel under gate T1 over
    ``FLASH_BWD_CASES`` (each case's reading over its bound), two launches
    bit-equal, the forward's lse within 1e-5 of the plain version's; timed
-   with a cold L2 at minicpm-2b's (B=1, H=36, S=2048, hd=64) and
-   granite-8b's (H=32, hd=128) causal shape beside its operations bound,
+   with a cold L2 at minicpm-2b's (B=1, H=36, S=2048, hd=64),
+   granite-8b's (H=32, hd=128) and qwen2-moe-a2.7b's (H=16, hd=128)
+   causal shape beside its operations bound,
    the design's 3xTF32 floor, the plain version and the backward of
    ``scaled_dot_product_attention`` (a yardstick only), and its kernels'
    ptxas registers, spills and shared memory;
@@ -64,11 +65,16 @@ Phases, each printed as one JSON object per line:
    T=8 and T=2048 for qwen2-moe-a2.7b's D=2048, E=60, K=4 beside the old
    pair (cuBLAS product, then the logits-in kernel), an empty kernel of the
    same launch shape, the plain version and the four-call yardstick;
+   router_gating_backward — the gating backward kernel of MoE training
+   under gate R1 over ``GATING_BWD_CASES``, two launches bit-equal; timed
+   with a cold L2 at one training micro-batch of qwen2-moe-a2.7b (T=2048,
+   E=60, K=4) beside its bytes bound, an empty kernel of the same launch
+   shape, the plain version, and both with the two products added;
 6. small_parity — a reduced granite-8b and a reduced qwen2-moe-a2.7b with
    its 60 experts, top-4, each with fp32 (1e-4) and int8 (1e-2) pools,
    served on the card and on the CPU (plain versions) with the same
    weights: logits must agree and only the card's run launches the
-   kernels; then train_parity, gate T2;
+   kernels; then train_parity, gate T2; then moe_train_parity, gate T2m;
 7. serving  — granite-8b at full width and full depth in fp32 with
    seeded random weights: a ``BatchEngine`` admits 8
    sessions (two 2048-token prompts through the flash kernel, six short
@@ -94,7 +100,13 @@ Phases, each printed as one JSON object per line:
    S=2048 through ``repro_torch.launch.train.main``, every layer's
    attention through the flash forward and backward kernels, under gate
    T3; its peak memory, and a step's forward, backward and optimizer
-   ms;
+   ms; then moe_training — minicpm-2b released, qwen2-moe-a2.7b at full
+   width cut to 4 layers, fp32, trained 4 steps at B=1, S=2048 through
+   the port's ``Trainer`` under gate T3m: every layer's router gating
+   through the router kernel forward and the gating backward kernel
+   backward; its dropped share per layer, peak memory, a step's forward,
+   backward and optimizer ms and tokens/s, and whether two gradient
+   passes from one state agree to the bit;
 11. checkpoint — gate C1 on two small trees held on the card; then,
    everything before released, minicpm-2b trained at full width for 2
    steps, saved with ``save_local`` into a temporary directory, loaded
@@ -176,7 +188,8 @@ The training path's bounds, fixed before this script's first run of them:
 * T1, flash backward kernel vs plain, on the card, over
   ``FLASH_BWD_CASES`` (minicpm-2b's B=1, H=36, S=2048, hd=64 causal;
   granite-8b's H=32, hd=128; windows 128 and 1; ragged 2050; B=2 at 97;
-  non-causal; Sq < Sk with a window), dO ~ N(0, 1) from a seeded
+  non-causal; Sq < Sk with a window; qwen2-moe-a2.7b's H=16, hd=128
+  causal, added with MoE training), dO ~ N(0, 1) from a seeded
   generator, out and lse the plain forward in float64 rounded to fp32:
   with g64 the plain backward in float64 and g32 in fp32, for each of dq,
   dk, dv, max|g_kernel - g64| <= 2 max|g32 - g64| + 1e-6 max|g64|; the
@@ -193,6 +206,47 @@ The training path's bounds, fixed before this script's first run of them:
   each, no other kernel; on one more step through ``make_train_step``'s
   gradient pass, every gradient leaf finite and not all zero, each
   layer-stacked leaf (wq, wk, wv among them) nonzero in every layer.
+
+The MoE training path's bounds, fixed before this script's first run of
+them:
+
+* R1, gating backward kernel vs plain, on the card, over
+  ``GATING_BWD_CASES`` (qwen2-moe-a2.7b's router, D=2048, E=60, K=4, at
+  T=2048 and 4096 and a ragged 97; the reduced E=8, K=2 at D=256;
+  constructed ties: twin router columns and a zero row of x), the gating
+  the plain forward's, dweights and dprobs ~ N(0, 1) from a seeded
+  generator: with g64 the plain backward in float64 and g32 in fp32, for
+  each of dlogits, dx and drouter, max|g_kernel - g64| <= 2 max|g32 -
+  g64| + 1e-6 max|g64|; two launches equal to the bit.
+* T2m, T2's form on a reduced qwen2-moe-a2.7b (``T2M_REDUCED``: L=2,
+  d=256, H=4, hd=64, vocab 256, E=8, K=2, capacity factor 1.0 so that
+  tokens drop), B=2, S=2048, card fp32 vs CPU fp32 and float64,
+  micro-batches 1 and 2, three steps from one state and one batch stream.
+  Routing replay: the card run records every gating call's expert ids in
+  call order; the CPU runs take them (``replaying_gating``: the plain
+  probabilities, the recorded ids, weights the gathered probabilities
+  over their clamped sum), each record's row count checked.  Each CPU
+  call also computes its own top-k: every row whose expert set differs
+  from the card's must be a tie, its cpu64 K-th and (K+1)-th
+  probabilities within ``TIE_GAP``, and such rows at most 1% of all
+  rows.  Step 1's gradient leaves, each over its leaf's largest |cpu64|
+  entry, and each step's loss, aux and grad norm: max|card32 - cpu64| <=
+  max(1e-4, 2 max|cpu32 - cpu64|).  Some (token, k) is dropped in at
+  least one layer.  The card launches the flash forward and backward, the
+  router kernel and the gating backward once per layer per micro-batch
+  per pass (L x mb x (1 + steps) each), nothing else; the CPU runs
+  launch nothing.
+* T3m, qwen2-moe-a2.7b at full width cut to 4 layers (2,904,541,184
+  parameters), fp32, B=1, S=2048, 4 steps through the port's ``Trainer``
+  with ``launch.train``'s cosine schedule: every loss, aux and grad norm
+  finite; ``flash_attention``, ``flash_attention_bwd``, ``moe_gating``
+  and ``moe_gating_bwd`` launched 4 x 4 times each, no other kernel; on
+  one more gradient pass, every gradient leaf finite, each layer-stacked
+  leaf nonzero in every layer, and each (layer, expert) slice of w_gate,
+  w_up and w_down nonzero exactly where that expert kept a token in that
+  layer.  Every earlier gate passes as written, and the ``kernels`` line
+  lists all six kernels (M4, F4 and D6 name the five of their time; the
+  gating backward is the sixth).
 
 The checkpoint format's bounds, fixed before this script's first run of
 them (every one exact):
@@ -799,7 +853,8 @@ FLASH_BWD_CASES = [("minicpm", 1, 36, 2048, 2048, True, 0, 64),
                    ("ragged97_B2", 2, 8, 97, 97, True, 0, 64),
                    ("noncausal", 1, 32, 128, 2048, False, 0, 128),
                    ("noncausal_ragged", 1, 8, 65, 97, False, 0, 64),
-                   ("window17_sq97_sk300", 2, 4, 97, 300, True, 17, 128)]
+                   ("window17_sq97_sk300", 2, 4, 97, 300, True, 17, 128),
+                   ("qwen2_moe", 1, 16, 2048, 2048, True, 0, 128)]
 
 
 def flash_bwd_inputs(torch, B, H, Sq, Sk, hd, causal, window, g):
@@ -910,6 +965,7 @@ def flash_backward_phase(torch, flush, build_log: str):
                                       for p in ("dq", "dk", "dv")),
            "t1_ratio": max(c["t1_ratio"] for c in cases.values()),
            "minicpm": timed(1, 36, 2048, 64), "granite": timed(1, 32, 2048, 128),
+           "qwen2_moe": timed(1, 16, 2048, 128),
            "ptxas": flash_bwd_ptxas(build_log),
            "dynamic_smem_bytes": {f"hd{d}": {"dkdv": smem(d, 0), "dq": smem(d, 1)}
                                   for d in (64, 128)}}
@@ -1010,11 +1066,7 @@ def router_check(torch, got, want, k, ties) -> dict:
     the rows whose ids agree, probabilities within 1e-6 on every row."""
     w, ids, probs = got
     wp, ip, pp = want
-    E = pp.shape[1]
-    top = pp.topk(min(k + 1, E), dim=1).values
-    gap = (top[:, k - 1] - top[:, k] if k < E
-           else torch.full_like(top[:, 0], float("inf")))
-    near = gap <= TIE_GAP
+    near = topk_gap(pp, k) <= TIE_GAP
     agree = (ids == ip).all(dim=1)
     held = torch.ones_like(near) if ties else ~near
     require(bool(agree[held].all()), "router gating: expert ids differ")
@@ -1129,6 +1181,113 @@ def router_gating_phase(torch, flush, build_log: str = ""):
     # and renormalisation
     res["library_ms"] = None
     emit({"phase": "router_gating", "D": D, "E": E, "K": K, **res})
+    return res
+
+
+#: gate R1's cases: (name, T, D, E, K, ties)
+GATING_BWD_CASES = [("qwen_T2048", 2048, 2048, 60, 4, False),
+                    ("qwen_T4096", 4096, 2048, 60, 4, False),
+                    ("ragged97", 97, 2048, 60, 4, False),
+                    ("reduced_E8K2", 4096, 256, 8, 2, False),
+                    ("ties", 2050, 2048, 60, 4, True)]
+
+
+def gating_bwd_inputs(torch, T, D, E, K, g, ties=False):
+    """x, router (``router_inputs``), the plain forward's (weights, ids,
+    probs), and dweights, dprobs ~ N(0, 1), all fp32 on the card."""
+    from repro_torch.kernels import moe_gating as mg
+
+    x, router = router_inputs(torch, T, D, E, g, ties=ties)
+    w, ids, probs = mg.router_gating_plain(x, router, K)
+    dw = torch.randn((T, K), generator=g, device="cuda")
+    dp = torch.randn((T, E), generator=g, device="cuda")
+    return x, router, w, ids, probs, dw, dp
+
+
+def router_gating_backward_phase(torch, flush, build_log: str = ""):
+    """Gate R1 over ``GATING_BWD_CASES``, two launches bit-equal; then
+    times with a cold L2 at one training micro-batch of qwen2-moe-a2.7b
+    (T=2048, D=2048, E=60, K=4): the kernel beside its bytes bound, an
+    empty kernel of the same launch shape (the launch floor) and the plain
+    version, and the wrapper with its two fp32 products beside the plain
+    version's.  No single PyTorch call computes this VJP."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moe_gating as mg
+
+    g = torch.Generator(device="cuda").manual_seed(30)
+    cases = {}
+    for name, T, D, E, K, ties in GATING_BWD_CASES:
+        args = gating_bwd_inputs(torch, T, D, E, K, g, ties)
+        a64 = [a.double() if a.is_floating_point() else a for a in args]
+        gk = (mg.gating_bwd_cuda(*args[2:]), *mg.router_gating_bwd_cuda(*args))
+        again = mg.gating_bwd_cuda(*args[2:])
+        g32 = (mg.gating_bwd_plain(*args[2:]),
+               *mg.router_gating_bwd_plain(*args))
+        g64 = (mg.gating_bwd_plain(*a64[2:]), *mg.router_gating_bwd_plain(*a64))
+        torch.cuda.synchronize()
+        res = {"repeat_bit_equal": torch.equal(gk[0], again)}
+        for part, a, b, c in zip(("dlogits", "dx", "drouter"), gk, g32, g64):
+            require(bool(torch.isfinite(a).all()), f"R1 {name} {part}")
+            err = (a.double() - c).abs().max().item()
+            err32 = (b.double() - c).abs().max().item()
+            bound = 2 * err32 + 1e-6 * c.abs().max().item()
+            res[part] = {"err": err, "err_fp32_plain": err32, "bound": bound,
+                         "ratio": err / bound}
+            require(err <= bound, f"gate R1 fails: {name} {part} {err} > "
+                    f"{bound}")
+        res["r1_ratio"] = max(res[p]["ratio"] for p in ("dlogits", "dx",
+                                                         "drouter"))
+        require(res["repeat_bit_equal"], f"R1 {name}: two launches differ")
+        cases[name] = res
+
+    lib = build.load("moe_gating_bwd", mg._BWD_SIGNATURES)
+    T, D, E, K = 2048, 2048, 60, 4
+    x, router, *gating = gating_bwd_inputs(torch, T, D, E, K, g)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        require(lib.repro_gating_bwd_empty(T, stream) == 0,
+                "empty gating backward launch failed")
+
+    # probs, dprobs read, dlogits written; weights, ids, dweights read
+    nbytes = 4 * (3 * T * E + 3 * T * K)
+    # p * dp, its row sum, dp - dot, p * (...) an element; a selected
+    # expert's sum, c's product and sum, dw / s, - c / s and its add
+    ops = 4 * T * E + 6 * T * K
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_SIMT_FLOPS
+    timed = {
+        "kernel_ms": time_ms(torch, lambda: mg.gating_bwd_cuda(*gating),
+                             iters=50, flush=flush),
+        "empty_ms": time_ms(torch, empty, iters=50, flush=flush),
+        "plain_ms": time_ms(torch, lambda: mg.gating_bwd_plain(*gating),
+                            iters=20, flush=flush),
+        "with_products_ms": time_ms(
+            torch, lambda: mg.router_gating_bwd_cuda(x, router, *gating),
+            iters=20, flush=flush),
+        "plain_with_products_ms": time_ms(
+            torch, lambda: mg.router_gating_bwd_plain(x, router, *gating),
+            iters=20, flush=flush),
+        "bytes": nbytes, "ops": ops,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        # the two products alone: 2 * T * D * E FLOP each at the fp32 rate
+        "products_bound_ms": max(4 * T * D * E / FP32_SIMT_FLOPS,
+                                 4 * (2 * T * D + 2 * D * E + T * E)
+                                 / HBM_BYTES_PER_S) * 1e3,
+    }
+    res = {"cases": cases,
+           "max_abs_err": max(c[p]["err"] for c in cases.values()
+                              for p in ("dlogits", "dx", "drouter")),
+           "max_abs_err_dlogits_T2048": cases["qwen_T2048"]["dlogits"]["err"],
+           "r1_ratio": max(c["r1_ratio"] for c in cases.values()),
+           "T2048": timed,
+           "ptxas": ptxas_report(
+               build_log, lambda n: ("gating_bwd" if "gating_bwd_kernel" in n
+                                     else "empty" if "gating_bwd_empty" in n
+                                     else None)),
+           # no single PyTorch call computes the gating's VJP
+           "library_ms": None}
+    emit({"phase": "router_gating_backward", "D": D, "E": E, "K": K, **res})
     return res
 
 
@@ -1490,12 +1649,12 @@ def expected_launches(cfg, prompts, steps):
         n_mlstm = sum(not decoder._is_slstm(cfg, j) for j in range(L))
         return {"paged_decode_attention": 0, "flash_attention": 0,
                 "flash_attention_bwd": 0, "moe_gating": 0,
-                "mlstm_scan": n_mlstm * len(prompts)}
+                "moe_gating_bwd": 0, "mlstm_scan": n_mlstm * len(prompts)}
     n_long = sum(p.shape[1] >= 2048 for p in prompts)
     return {"paged_decode_attention": L * steps, "flash_attention": L * n_long,
             "flash_attention_bwd": 0,
             "moe_gating": L * (len(prompts) + steps) if cfg.arch == "moe" else 0,
-            "mlstm_scan": 0}
+            "moe_gating_bwd": 0, "mlstm_scan": 0}
 
 
 def small_parity_phase(torch):
@@ -1717,6 +1876,204 @@ def train_parity_phase(torch):
           **out})
 
 
+#: T2m: a reduced qwen2-moe-a2.7b (hd=64, so the flash kernels take it)
+#: with 8 experts, top-2 and a capacity factor of 1.0, under which tokens
+#: drop (``reduced`` alone sets 8.0)
+T2M_REDUCED = {"n_layers": 2, "d_model": 256, "vocab": 256, "n_experts": 8,
+               "moe_top_k": 2, "capacity_factor": 1.0}
+#: at most this share of a run's gating rows may be ties that the CPU's
+#: own top-k orders otherwise than the card
+T2M_TIE_SHARE = 0.01
+
+
+def topk_gap(probs, k):
+    """Each row's K-th minus (K+1)-th largest probability (inf at K = E)."""
+    if k >= probs.shape[1]:
+        return probs.new_full(probs.shape[:1], float("inf"))
+    top = probs.topk(k + 1, dim=1).values
+    return top[:, k - 1] - top[:, k]
+
+
+@contextlib.contextmanager
+def replaying_gating(records, seen):
+    """For a CPU run of gate T2m: ``RouterGating``'s plain forward computes
+    the plain probabilities and takes the card's expert ids of the same
+    call (``records``, in call order), weights the gathered probabilities
+    over their clamped sum, summed in selection order as the plain forward
+    sums them.  Each call's own top-k is computed too: ``seen`` gets, per
+    call, (the rows whose expert set differs from the card's, every row's
+    K-th minus (K+1)-th probability).  The port has no replay argument:
+    this swaps the module's plain forward for the run."""
+    import torch
+
+    from repro_torch.kernels import moe_gating as mg
+
+    real = mg.router_gating_plain
+
+    def replay(x, router, k):
+        i = len(seen)
+        require(i < len(records), f"T2m: gating call {i} past the card's "
+                f"{len(records)}")
+        ids = records[i].to(x.device)
+        require(tuple(ids.shape) == (x.shape[0], k), f"T2m: gating call {i} "
+                f"has {x.shape[0]} rows x {k}, the card's {tuple(ids.shape)}")
+        _, own, probs = real(x, router, k)
+        sel = probs.gather(1, ids.long())
+        total = torch.zeros_like(sel[:, :1])
+        for j in range(k):
+            total = total + sel[:, j:j + 1]
+        differ = (own.sort(dim=1).values != ids.sort(dim=1).values).any(dim=1)
+        seen.append((differ.nonzero()[:, 0], topk_gap(probs, k)))
+        return sel / torch.clamp_min(total, 1e-9), ids, probs
+
+    mg.router_gating_plain = replay
+    try:
+        yield seen
+    finally:
+        mg.router_gating_plain = real
+
+
+def dropped_by_call(cfg, records):
+    """Per gating call, the (token, k) pairs past their expert's capacity
+    (the training drop), from the call's expert ids."""
+    from repro_torch.models.moe import capacity
+
+    out = []
+    for ids in records:
+        T = ids.shape[0]
+        G = (cfg.moe_groups if cfg.moe_groups > 1 and T % cfg.moe_groups == 0
+             else 1)
+        C = capacity(cfg, T // G, False)
+        load = [ids.reshape(G, -1)[g].long().bincount(minlength=cfg.n_experts)
+                for g in range(G)]
+        out.append(int(sum((n - C).clamp_min(0).sum().item() for n in load)))
+    return out
+
+
+def moe_train_parity_phase(torch, device="cuda", cfg=None):
+    """Gate T2m: a reduced qwen2-moe-a2.7b trained on the card in fp32 and
+    on the CPU in fp32 and float64 from the same state and batches, with 1
+    and 2 micro-batches, the CPU runs replaying the card's routing: step
+    1's gradient leaves (each over its leaf's largest |cpu64| entry), then
+    each of three steps' loss, aux and grad norm, within max(1e-4, 2
+    max|cpu32 - cpu64|) of cpu64; rows the CPU would route otherwise only
+    cpu64 ties, at most 1% of the rows; tokens dropped in some layer.  The
+    card launches the flash forward and backward, the router kernel and
+    the gating backward in every layer of every micro-batch, the CPU
+    never.  ``device`` and ``cfg`` rehearse it on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.optim import constant_schedule
+    from repro_torch.params import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.tree import leaves
+
+    cfg = cfg or get_config("qwen2-moe-a2.7b").reduced(**T2M_REDUCED)
+    require(cfg.hd == 64 and cfg.arch == "moe", f"T2m config {cfg}")
+    S = 2048 if device == "cuda" else 64
+    base = train_state_to_numpy(
+        train_state_init(cfg, torch.Generator().manual_seed(30), "cpu"))
+    data = make_batch_iterator(cfg.vocab, S, 2, seed=30)
+    batches = [next(data) for _ in range(T2_STEPS)]
+    L, K = cfg.n_layers, cfg.moe_top_k
+    out = {}
+    for mb in (1, 2):
+        runs, records, seen = {}, [], {}
+        for name, dev, dt in (("card32", device, np.float32),
+                              ("cpu32", "cpu", np.float32),
+                              ("cpu64", "cpu", np.float64)):
+            state = train_state_from_numpy(base._replace(
+                params=_cast_tree(base.params, dt), opt=type(base.opt)(
+                    base.opt.step, _cast_tree(base.opt.mu, dt),
+                    _cast_tree(base.opt.nu, dt))), dev)
+            step = make_train_step(cfg, constant_schedule(1e-3),
+                                   microbatches=mb)
+            if name == "card32":
+                ctx = recording_gating()
+            else:
+                ctx = replaying_gating([r.cpu() for r in records],
+                                       seen.setdefault(name, []))
+            ops.reset_launch_counts()
+            with ctx as rec:
+                _, _, grads = step.grads_of(state.params, {
+                    k: torch.as_tensor(v, device=dev)
+                    for k, v in batches[0].items()})
+                grads = [g.double().cpu() for g in leaves(grads)]
+                hist = []
+                for b in batches:
+                    state, m = step(state, b)
+                    hist.append([float(m[k]) for k in ("loss", "aux",
+                                                       "grad_norm")])
+            if name == "card32":
+                records = [ids for ids, _ in rec]
+            runs[name] = (grads, hist, ops.launch_counts())
+            del state, step
+        calls = L * mb * (1 + T2_STEPS)
+        require(len(records) == calls and all(len(seen[k]) == calls
+                                              for k in seen),
+                f"T2m mb={mb}: gating calls {len(records)}, "
+                f"{ {k: len(v) for k, v in seen.items()} }, want {calls}")
+        card, c32, c64 = (runs[k] for k in ("card32", "cpu32", "cpu64"))
+        want = {k: 0 for k in card[2]}
+        for k in ("flash_attention", "flash_attention_bwd", "moe_gating",
+                  "moe_gating_bwd"):
+            want[k] = L * mb * (1 + T2_STEPS) if device == "cuda" else 0
+        require(card[2] == want, f"T2m mb={mb} card launches {card[2]} != "
+                f"{want}")
+        require(not any(c32[2].values()) and not any(c64[2].values()),
+                f"T2m mb={mb}: the CPU runs launched kernels")
+        # routing: a row the CPU would route otherwise must be a cpu64 tie
+        rows = sum(r.shape[0] for r in records)
+        gaps64 = [gap for _, gap in seen["cpu64"]]
+        differ = {}
+        for name in ("cpu32", "cpu64"):
+            for i, (idx, _) in enumerate(seen[name]):
+                for r in idx.tolist():
+                    differ[(i, r)] = float(gaps64[i][r])
+        require(all(g <= TIE_GAP for g in differ.values()),
+                f"T2m mb={mb}: rows routed otherwise on the CPU are no "
+                f"ties: {differ}")
+        require(len(differ) <= T2M_TIE_SHARE * rows,
+                f"T2m mb={mb}: {len(differ)} of {rows} rows routed otherwise")
+        drops = dropped_by_call(cfg, records)
+        # call i: pass i // (mb L), micro-batch (i // L) % mb, layer i % L
+        by_pass_layer = [[sum(drops[p * mb * L + m * L + j] for m in range(mb))
+                          for j in range(L)] for p in range(1 + T2_STEPS)]
+        require(max(drops) > 0, f"T2m mb={mb}: no token dropped")
+        grad_ratio = []
+        for a, b, c in zip(card[0], c32[0], c64[0]):
+            scale = c.abs().max().item()
+            err = (a - c).abs().max().item() / scale
+            bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
+            grad_ratio.append(err / bound)
+        step_ratio = [[abs(a - c) / max(1e-4, 2 * abs(b - c))
+                       for a, b, c in zip(x, y, z)]
+                      for x, y, z in zip(card[1], c32[1], c64[1])]
+        out[f"mb{mb}"] = {
+            "loss_aux_grad_norm": {k: runs[k][1] for k in runs},
+            "grad_leaf_ratio_to_bound_max": max(grad_ratio),
+            "step_ratio_to_bound": step_ratio, "launches_cuda": card[2],
+            "dropped_by_pass_and_layer": by_pass_layer,
+            "slots_by_call": [r.numel() for r in records],
+            "smallest_cpu64_gap": min(float(g.min()) for g in gaps64),
+            "rows": rows, "rows_routed_otherwise": len(differ),
+            "routed_otherwise": {f"{i}:{r}": g for (i, r), g in
+                                 sorted(differ.items())[:20]}}
+        require(max(grad_ratio) <= 1.0,
+                f"gate T2m fails: mb={mb} gradient leaves {grad_ratio}")
+        require(max(max(r) for r in step_ratio) <= 1.0,
+                f"gate T2m fails: mb={mb} loss / aux / grad norm {step_ratio}")
+    emit({"phase": "moe_train_parity", "config": f"qwen2-moe-a2.7b reduced("
+          f"L={cfg.n_layers}, d={cfg.d_model}, H={cfg.n_heads}, hd={cfg.hd}, "
+          f"vocab={cfg.vocab}, E={cfg.n_experts}, K={K}, d_expert="
+          f"{cfg.d_exp}, capacity_factor={cfg.capacity_factor})",
+          "batch": 2, "seq": S, "steps": T2_STEPS, **out})
+    return out
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -1919,6 +2276,43 @@ def named_leaves(tree, prefix="", sep="."):
             yield f"{prefix}{k}", v
 
 
+def timed_steps(torch, cfg, state, data, device="cuda", n=2):
+    """``n`` more steps at lr 3e-3 on ``data``'s next batches, each timed
+    on the host clock in its forward, backward (``torch.autograd.grad``)
+    and optimizer (clip, then AdamW) parts, synchronised at each boundary.
+    Returns (state, timings)."""
+    from repro_torch.models import ops_for
+    from repro_torch.optim import adamw_update, clip_by_global_norm
+    from repro_torch.tree import leaves
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    model = ops_for(cfg)
+    timings = []
+    for _ in range(n):
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in next(data).items()}
+        sync()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(state.params, cfg, batch)
+        sync()
+        t1 = time.perf_counter()
+        g = torch.autograd.grad(loss, leaves(state.params))
+        sync()
+        t2 = time.perf_counter()
+        g, _ = clip_by_global_norm(list(g), 1.0)
+        state = state._replace(opt=adamw_update(
+            state.params, g, state.opt, 3e-3))
+        sync()
+        t3 = time.perf_counter()
+        del g, loss
+        timings.append({"forward_ms": (t1 - t0) * 1e3,
+                        "backward_ms": (t2 - t1) * 1e3,
+                        "optimizer_ms": (t3 - t2) * 1e3,
+                        "step_ms": (t3 - t0) * 1e3,
+                        "tokens_per_s": batch["tokens"].numel() / (t3 - t0)})
+    return state, timings
+
+
 def training_phase(torch):
     """Gate T3: minicpm-2b at full width and depth in fp32, B=1, S=2048,
     ``TRAIN_STEPS`` steps through the user's entry point
@@ -1932,9 +2326,7 @@ def training_phase(torch):
     from repro_torch.data import make_batch_iterator
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import ops_for
-    from repro_torch.optim import (adamw_update, clip_by_global_norm,
-                                   cosine_schedule)
+    from repro_torch.optim import cosine_schedule
     from repro_torch.tree import leaves
     from repro_torch.train import make_train_step, train_state_init
 
@@ -1980,30 +2372,7 @@ def training_phase(torch):
     del grads
     require(not bad, f"T3: gradient leaves not finite or all zero: {bad}")
 
-    model = ops_for(cfg)
-    timings = []
-    for _ in range(2):
-        batch = {k: torch.as_tensor(v, device="cuda")
-                 for k, v in next(data).items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _ = model.loss_fn(state.params, cfg, batch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        g = torch.autograd.grad(loss, leaves(state.params))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        g, _ = clip_by_global_norm(list(g), 1.0)
-        state = state._replace(opt=adamw_update(
-            state.params, g, state.opt, 3e-3))
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        del g, loss
-        timings.append({"forward_ms": (t1 - t0) * 1e3,
-                        "backward_ms": (t2 - t1) * 1e3,
-                        "optimizer_ms": (t3 - t2) * 1e3,
-                        "step_ms": (t3 - t0) * 1e3,
-                        "tokens_per_s": B * S / (t3 - t0)})
+    state, timings = timed_steps(torch, cfg, state, data)
     emit({"phase": "training", "model": cfg.name, "n_layers": L,
           "d_model": cfg.d_model, "params": n_params, "batch": B, "seq": S,
           "steps": TRAIN_STEPS, "loss": losses, "grad_norm": norms,
@@ -2012,6 +2381,119 @@ def training_phase(torch):
           "max_memory_allocated_bytes": peak,
           "timed_steps": timings})
     del state
+    return counts, timings[-1]
+
+
+#: T3m: qwen2-moe-a2.7b at full width cut to this many of its 24 layers
+#: (all 24 with AdamW would need 229 GB; 4 take 46.5 GB of state)
+T3M_LAYERS = 4
+
+
+def moe_training_phase(torch, device="cuda", cfg=None):
+    """Gate T3m: qwen2-moe-a2.7b at full width cut to ``T3M_LAYERS``
+    layers, fp32, B=1, S=2048, ``TRAIN_STEPS`` steps through the port's
+    ``Trainer`` with ``launch.train``'s cosine schedule: every loss, aux
+    and grad norm finite; the flash forward and backward, the router
+    kernel and the gating backward launched once per layer per step,
+    nothing else.  Then one more gradient pass: every leaf finite, each
+    layer-stacked leaf nonzero in every layer, and each (layer, expert)
+    slice of the expert weights nonzero exactly where that expert kept a
+    token in that layer; a second pass from the same state, compared to
+    the bit (a report); and two more steps timed in their forward,
+    backward and optimizer parts.  ``device`` and ``cfg`` rehearse it on
+    the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_schedule
+    from repro_torch.models.moe import capacity
+    from repro_torch.train import Trainer, train_state_init
+    from repro_torch.tree import leaves
+
+    full = get_config("qwen2-moe-a2.7b")
+    cfg = cfg or dataclasses.replace(full, n_layers=T3M_LAYERS)
+    L, B, S, K = cfg.n_layers, 1, 2048 if device == "cuda" else 64, \
+        cfg.moe_top_k
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(30)
+    state = train_state_init(cfg, gen, device)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    data = make_batch_iterator(cfg.vocab, S, B, seed=30)
+    trainer = Trainer(cfg, state, make_schedule("cosine", 3e-3, TRAIN_STEPS),
+                      data)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_gating() as rec:
+        hist = trainer.run(TRAIN_STEPS, log=None)
+    sync()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    want = {k: 0 for k in counts}
+    if device == "cuda":
+        for k in ("flash_attention", "flash_attention_bwd", "moe_gating",
+                  "moe_gating_bwd"):
+            want[k] = L * TRAIN_STEPS
+    series = {k: [h[k] for h in hist] for k in ("loss", "aux", "grad_norm")}
+    require(len(hist) == TRAIN_STEPS, f"T3m: {len(hist)} steps recorded")
+    require(all(math.isfinite(x) for v in series.values() for x in v),
+            f"T3m: non-finite loss, aux or grad norm {series}")
+    require(counts == want, f"T3m launches {counts} != {want}")
+    ids = [r[0] for r in rec]
+    require(len(ids) == L * TRAIN_STEPS, f"T3m: {len(ids)} gating calls")
+    drops = dropped_by_call(cfg, ids)
+    dropped_share = [[drops[t * L + j] / ids[t * L + j].numel()
+                      for j in range(L)] for t in range(TRAIN_STEPS)]
+
+    step = trainer.step_fn
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in next(data).items()}
+    with recording_gating() as rec:
+        _, _, grads = step.grads_of(trainer.state.params, batch)
+    require(len(rec) == L, f"T3m: {len(rec)} gating calls in one pass")
+    # an expert keeps a token in a layer iff any token chose it (C >= 1)
+    kept = torch.stack([r[0].long().flatten().bincount(
+        minlength=cfg.n_experts) > 0 for r in rec]).cpu()      # (L, E)
+    require(capacity(cfg, B * S, False) >= 1, "T3m: capacity 0")
+    bad, experts = {}, {}
+    for name, g in named_leaves(grads):
+        alive = (g.flatten(1).ne(0).any(1) if name.startswith("blocks.")
+                 else g.ne(0).any()[None])
+        finite = bool(torch.isfinite(g).all())
+        if not finite or not bool(alive.all()):
+            bad[name] = {"finite": finite,
+                         "zero_layers": (~alive).nonzero().flatten().tolist()}
+        if name in ("blocks.moe.w_gate", "blocks.moe.w_up",
+                    "blocks.moe.w_down"):
+            live = g.flatten(2).ne(0).any(2).cpu()             # (L, E)
+            experts[name] = {"nonzero": int(live.sum()),
+                             "mismatch": (live != kept).nonzero().tolist()}
+            if experts[name]["mismatch"]:
+                bad[name] = experts[name]
+    require(not bad, f"T3m: gradient leaves not finite, zero in a layer, or "
+            f"zero otherwise than where experts kept tokens: {bad}")
+    _, _, again = step.grads_of(trainer.state.params, batch)
+    repeat = all(torch.equal(a, b) for a, b in zip(leaves(grads),
+                                                     leaves(again)))
+    del grads, again
+
+    state, timings = timed_steps(torch, cfg, trainer.state, data, device)
+    emit({"phase": "moe_training", "model": cfg.name,
+          "reduced": {"n_layers": [full.n_layers, L]}, "d_model": cfg.d_model,
+          "experts": cfg.n_experts, "top_k": K, "params": n_params,
+          "batch": B, "seq": S, "steps": TRAIN_STEPS, **series,
+          "launches": counts, "main_wall_s": wall_s,
+          "main_tokens_per_s": TRAIN_STEPS * B * S / wall_s,
+          "max_memory_allocated_bytes": peak,
+          "capacity": capacity(cfg, B * S, False),
+          "dropped_share_by_step_and_layer": dropped_share,
+          "experts_kept_by_layer": kept.sum(1).tolist(),
+          "expert_grads": experts, "two_passes_bit_equal": repeat,
+          "timed_steps": timings,
+          "nvidia_smi": nvidia_smi() if device == "cuda" else None})
+    del state, trainer
     return counts, timings[-1]
 
 
@@ -3737,11 +4219,14 @@ def main() -> int:
                                      logs.get("flash_attention_bwd", ""))
     gating_phase(torch, flush)
     router = router_gating_phase(torch, flush, logs.get("moe_gating", ""))
+    router_bwd = router_gating_backward_phase(
+        torch, flush, logs.get("moe_gating_bwd", ""))
     mlstm = mlstm_phase(torch, flush, logs.get("mlstm_scan", ""))
     del flush
     small_parity_phase(torch)
     xlstm_parity_phase(torch)
     train_parity_phase(torch)
+    moe_train_parity_phase(torch)
     counts = serving_phase(torch, "granite-8b", "serving")
     # granite-8b's 33 GB, qwen2-moe-a2.7b's 57 GB and xlstm-1.3b's 23 GB do
     # not fit one card together: everything of one model must be gone
@@ -3752,6 +4237,8 @@ def main() -> int:
     xlstm_counts = serving_xlstm_phase(torch)
     release(torch, "training")
     train_counts, _ = training_phase(torch)
+    release(torch, "moe_training")
+    moe_train_counts, _ = moe_training_phase(torch)
     release(torch, "checkpoint")
     trained, trained_entries = checkpoint_phase(torch)
     fetched, reference = mesh_phase(torch, trained, trained_entries, t_main)
@@ -3810,6 +4297,21 @@ def main() -> int:
          "bound_ms": router["T8"]["bound_ms"],
          "bound_by": router["T8"]["bound_by"],
          "library_ms": router["library_ms"]},
+        {"name": "moe_gating_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_gating_bwd.cu",
+         "entry": "router_gating_bwd_cuda (kernels/moe_gating.py)",
+         # no TPU kernel: the JAX gradient of the gating is XLA's autodiff
+         # of the jnp topk_gating
+         "replaces": "src/repro/models/moe.py:62",
+         "launches": moe_train_counts["moe_gating_bwd"],
+         # at the main path's shape: one micro-batch of qwen2-moe-a2.7b's
+         # training, T=2048, E=60, K=4 (the kernel's dlogits)
+         "max_abs_err": router_bwd["max_abs_err_dlogits_T2048"],
+         "ms": router_bwd["T2048"]["kernel_ms"],
+         "plain_ms": router_bwd["T2048"]["plain_ms"],
+         "bound_ms": router_bwd["T2048"]["bound_ms"],
+         "bound_by": router_bwd["T2048"]["bound_by"],
+         "library_ms": router_bwd["library_ms"]},
         {"name": "mlstm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
          "replaces": "src/repro/kernels/mlstm_scan.py:25",

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
 SOURCES: Tuple[str, ...] = ("paged_attention", "flash_attention",
-                            "flash_attention_bwd", "moe_gating", "mlstm_scan")
+                            "flash_attention_bwd", "moe_gating",
+                            "moe_gating_bwd", "mlstm_scan")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC")

@@ -6,9 +6,11 @@ fallback from one to the other.
 
 Under autograd (grad enabled and an input that requires grad),
 :func:`flash_attention` goes through ``models.chunked.FlashAttention``,
-whose backward is the flash backward kernel (its plain version on the
-CPU).  The other entries have no backward yet: they raise there, on both
-devices, rather than hand back a tensor that cuts the graph.
+whose backward is the flash backward kernel, and :func:`router_gating`
+through ``models.moe.RouterGating``, whose backward is the gating backward
+kernel (each its plain version on the CPU).  The other entries have no
+backward yet: they raise there, on both devices, rather than hand back a
+tensor that cuts the graph.
 
 Each CUDA wrapper counts its launches; :func:`launch_counts` reads the
 counts and :func:`reset_launch_counts` sets them to 0, so a caller can
@@ -91,8 +93,11 @@ def moe_gating(logits: torch.Tensor, k: int,
 def router_gating(x: torch.Tensor, router: torch.Tensor, k: int,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (T, D) @ router (D, E), then the gating: (weights (T,k), experts
-    (T,k) int32, probs (T,E)).  Counts under ``moe_gating``."""
-    _refuse_grad("router_gating", x, router)
+    (T,k) int32, probs (T,E)).  Counts under ``moe_gating``; its backward
+    under ``moe_gating_bwd``."""
+    if _under_grad(x, router):
+        from ..models.moe import RouterGating
+        return RouterGating.apply(x, router, k)
     fn = (_gating.router_gating_cuda if _route(x)
           else _gating.router_gating_plain)
     return fn(x, router, k)
@@ -115,6 +120,7 @@ def launch_counts() -> Dict[str, int]:
             "flash_attention": _flash.launches,
             "flash_attention_bwd": _flash.bwd_launches,
             "moe_gating": _gating.launches,
+            "moe_gating_bwd": _gating.bwd_launches,
             "mlstm_scan": _mlstm.launches}
 
 
@@ -123,4 +129,5 @@ def reset_launch_counts() -> None:
     _flash.launches = 0
     _flash.bwd_launches = 0
     _gating.launches = 0
+    _gating.bwd_launches = 0
     _mlstm.launches = 0

@@ -7,7 +7,8 @@ Runs on the card (``--device cuda``, the default) with the full config;
 ``--reduced`` trains the smoke-test width (``--layers``, ``--d-model``,
 ``--vocab``) instead, and ``--device cpu`` runs the plain versions on the
 CPU.  Without a card and without ``--device cpu`` it raises.  The port
-trains dense configs (minicpm-2b, granite-8b, ...).  ``--save PATH``
+trains dense configs (minicpm-2b, granite-8b, ...) and MoE configs
+(qwen2-moe-a2.7b, dbrx-132b).  ``--save PATH``
 writes the trained parameters as a checkpoint in the JAX package's format
 (``repro_torch.checkpoint.save_local``), which either package can load.
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import TYPE_CHECKING, Dict, List, Optional
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional
 
 import torch
 
@@ -27,6 +28,16 @@ if TYPE_CHECKING:
 def main(argv: Optional[List[str]] = None) -> List[Dict[str, float]]:
     """Train from the command line; returns the per-step history."""
     return run(argv).history
+
+
+def make_schedule(name: str, lr: float, steps: int) -> Callable[[int], float]:
+    """The launcher's lr schedule over ``steps``: ``cosine`` (a tenth
+    warmup) or ``wsd`` (a tenth warmup, 70% stable, 20% decay)."""
+    from repro_torch.optim import cosine_schedule, wsd_schedule
+
+    if name == "wsd":
+        return wsd_schedule(lr, steps // 10, 7 * steps // 10, 2 * steps // 10)
+    return cosine_schedule(lr, steps // 10, steps)
 
 
 def run(argv: Optional[List[str]] = None) -> "Trainer":
@@ -52,7 +63,6 @@ def run(argv: Optional[List[str]] = None) -> "Trainer":
     from repro_torch.configs import get_config
     from repro_torch.core.device import resolve_device
     from repro_torch.data import make_batch_iterator
-    from repro_torch.optim import cosine_schedule, wsd_schedule
     from repro_torch.tree import leaves
     from repro_torch.train import Trainer, train_state_init
 
@@ -61,12 +71,7 @@ def run(argv: Optional[List[str]] = None) -> "Trainer":
     if args.reduced:
         cfg = cfg.reduced(n_layers=args.layers, d_model=args.d_model,
                           vocab=args.vocab)
-    if args.schedule == "wsd":
-        sched = wsd_schedule(args.lr, args.steps // 10, 7 * args.steps // 10,
-                             2 * args.steps // 10)
-    else:
-        sched = cosine_schedule(args.lr, args.steps // 10, args.steps)
-
+    sched = make_schedule(args.schedule, args.lr, args.steps)
     data = make_batch_iterator(cfg.vocab, args.seq, args.batch,
                                seed=args.seed)
     gen = torch.Generator(device=device).manual_seed(args.seed)

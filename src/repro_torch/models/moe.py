@@ -12,9 +12,16 @@ Differences from the JAX package:
   card, its plain version on the CPU), so there is no ``use_kernel``
   argument: it computes the JAX ``xt @ router`` then ``topk_gating``, ties
   to the lower expert index included.
-* The combine gathers each kept (token, k) slot and sums over k, instead
-  of scatter-adding into the tokens: a float ``index_add_`` on the card
-  uses atomics, whose rounding changes from run to run.
+* Under autograd the gating is :class:`RouterGating`, the twin of
+  ``models/chunked.py``'s ``FlashAttention``: the router kernel forward and
+  the gating backward kernel (``csrc/moe_gating_bwd.cu``) backward, where
+  the JAX package differentiates ``topk_gating`` with XLA.
+* The dispatch copies each token to its K rows by a broadcast, and the
+  combine gathers each kept (token, k) slot and sums over k, instead of
+  indexing and scatter-adding by token: a float ``index_add_`` on the card
+  (and an indexed read's backward) uses atomics, whose rounding changes
+  from run to run.  Both backward passes are then sums in a fixed order,
+  and a kept slot's gather receives one gradient.
 * The JAX package's sharding constraints on the dispatch buffers
   (``_constrain_groups``) have no counterpart on one device.
 * :func:`run_moe` returns the gating, not the Switch aux loss; callers
@@ -25,14 +32,46 @@ Differences from the JAX package:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels import moe_gating as _gating
 from ..kernels import ops
+from ..kernels.ops import _route
 from .common import Params, dense_init, init_mlp, run_mlp
 from .config import ModelConfig
+
+
+class RouterGating(torch.autograd.Function):
+    """``RouterGating.apply(x, router, k)``: x (T, D), router (D, E) ->
+    (weights (T,k), experts (T,k) int32, probs (T,E)), the values of
+    ``ops.router_gating`` without grad, bit for bit.  The forward saves
+    (x, router, weights, experts, probs); the backward is the gating's VJP
+    (``router_gating_bwd_cuda`` on the card, ``router_gating_bwd_plain`` on
+    the CPU).  ``experts`` is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, router: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        fwd = (_gating.router_gating_cuda if _route(x)
+               else _gating.router_gating_plain)
+        weights, experts, probs = fwd(x, router, k)
+        ctx.save_for_backward(x, router, weights, experts, probs)
+        ctx.mark_non_differentiable(experts)
+        return weights, experts, probs
+
+    @staticmethod
+    def backward(ctx, dweights: torch.Tensor, _dexperts: Optional[torch.Tensor],
+                 dprobs: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, None]:
+        x, router, weights, experts, probs = ctx.saved_tensors
+        bwd = (_gating.router_gating_bwd_cuda if _route(x)
+               else _gating.router_gating_bwd_plain)
+        dx, drouter = bwd(x, router, weights, experts, probs,
+                          dweights.contiguous(), dprobs.contiguous())
+        return dx, drouter, None
 
 
 def init_moe(cfg: ModelConfig, generator: torch.Generator,
@@ -80,8 +119,9 @@ def run_moe(p: Params, cfg: ModelConfig, x: torch.Tensor,
     E, K = cfg.n_experts, cfg.moe_top_k
     T = B * S
     xt = x.reshape(T, D)
-    weights, experts, probs = ops.router_gating(xt.float().contiguous(),
-                                                p["router"], K)
+    weights, experts, probs = ops.router_gating(
+        xt.to(torch.promote_types(xt.dtype, torch.float32)).contiguous(),
+        p["router"], K)
 
     G = cfg.moe_groups if cfg.moe_groups > 1 and T % cfg.moe_groups == 0 else 1
     Tg = T // G
@@ -97,9 +137,9 @@ def run_moe(p: Params, cfg: ModelConfig, x: torch.Tensor,
     keep = pos_in_exp < C
     slot = flat_exp * C + torch.where(keep, pos_in_exp, 0)
     flat_w = weights.reshape(G, Tg * K) * keep
-    token_idx = torch.arange(Tg, device=dev).repeat_interleave(K)
-    contrib = torch.where(keep[..., None], x.reshape(G, Tg, D)[:, token_idx],
-                          0)
+    # row t * K + k is token t: a broadcast, whose backward sums over k
+    rows = x.reshape(G, Tg, 1, D).expand(G, Tg, K, D).reshape(G, Tg * K, D)
+    contrib = torch.where(keep[..., None], rows, 0)
     # kept slots are distinct; dropped rows go to a spare last row, so the
     # writes need no accumulation
     dst = torch.where(keep, slot, E * C)

@@ -9,9 +9,12 @@ summed in float32, in slice order.  The lr is read from the schedule at
 the step count before the update, as in JAX.  Parameters and moments are
 updated in place (see :mod:`..optim.adamw`).
 
-The port trains the dense decoder.  MoE and xLSTM training wait for a
-backward of their kernels (``ops.router_gating``, ``ops.mlstm_scan``), and
-M-RoPE and sliding windows for their forward ports.
+The port trains the dense and the MoE decoder.  An MoE config keeps the
+capacity-factor token drops, as the JAX package's training does, and its
+gating differentiates through ``models.moe.RouterGating`` (the router
+kernel forward, the gating backward kernel backward).  xLSTM training
+waits for a backward of the mLSTM kernel (``ops.mlstm_scan``), and M-RoPE
+and sliding windows for their forward ports.
 """
 
 from __future__ import annotations
@@ -36,10 +39,10 @@ class TrainState(NamedTuple):
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    if cfg.arch != "dense":
+    if cfg.arch not in ("dense", "moe"):
         raise NotImplementedError(
             f"training arch {cfg.arch!r} ({cfg.name}) is not ported yet; the "
-            "port trains the dense decoder")
+            "port trains the dense and MoE decoders")
     if cfg.mrope or cfg.window > 0:
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and sliding-window attention are not ported "

@@ -4,7 +4,7 @@ so that a port tree and a JAX tree can be walked side by side."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, Iterator, List
 
 
 def leaves(tree: Any) -> List[Any]:
@@ -20,15 +20,18 @@ def leaves(tree: Any) -> List[Any]:
 def unflatten(like: Any, flat: List[Any]) -> Any:
     """``like``'s structure with the leaves of ``flat``, in :func:`leaves`'
     order."""
-    it = iter(flat)
+    return _build(like, iter(flat))
 
-    def build(t: Any) -> Any:
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-    return build(like)
+
+def _build(t: Any, it: Iterator[Any]) -> Any:
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle that holds ``flat`` (a gradient tree,
+    # say) until the cyclic collector runs
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:

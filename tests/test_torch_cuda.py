@@ -23,9 +23,13 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
 from repro_torch.kernels.mlstm_scan import (KERNEL_CHUNK, mlstm_prep_cuda,
                                             mlstm_prep_plain, mlstm_scan_cuda,
                                             mlstm_scan_plain)
-from repro_torch.kernels.moe_gating import (moe_gating_cuda, moe_gating_plain,
+from repro_torch.kernels.moe_gating import (gating_bwd_cuda, gating_bwd_plain,
+                                           moe_gating_cuda, moe_gating_plain,
+                                           router_gating_bwd_cuda,
+                                           router_gating_bwd_plain,
                                            router_gating_cuda,
                                            router_gating_plain)
+from repro_torch.models.moe import RouterGating
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain,
                                                  split_pages)
@@ -239,6 +243,43 @@ def test_router_gating_on_the_cpu_takes_the_plain_version():
 def test_router_gating_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="on one card"):
         router_gating_cuda(*_router_inputs(8, 64, 60, "cpu"), 4)
+
+
+def _gating_bwd_inputs(T, D, E, K, device, seed=0, ties=False):
+    """x, router, the plain forward's (weights, ids, probs) and cotangents
+    dweights, dprobs ~ N(0, 1), all fp32 on ``device``."""
+    x, router = _router_inputs(T, D, E, device, seed=seed, ties=ties)
+    w, ids, probs = router_gating_plain(x, router, K)
+    rng = np.random.default_rng(seed + 1)
+    t = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32)).to(device)
+    return x, router, w, ids, probs, t(T, K), t(T, E)
+
+
+def test_gating_bwd_cuda_wrappers_refuse_cpu_tensors():
+    x, router, *gating = _gating_bwd_inputs(8, 64, 60, 4, "cpu")
+    with pytest.raises(ValueError, match="one card"):
+        gating_bwd_cuda(*gating)
+    with pytest.raises(ValueError, match="one card"):
+        router_gating_bwd_cuda(x, router, *gating)
+
+
+def test_router_gating_under_grad_on_the_cpu_takes_the_plain_versions():
+    """Forward and backward of ``RouterGating`` on the CPU: the plain
+    versions, no launch counted, for any E and k."""
+    before = ops.launch_counts()
+    for D, E, k in ((64, 60, 4), (30, 65, 4), (16, 16, 9)):
+        x, router, w, ids, probs, dw, dp = _gating_bwd_inputs(7, D, E, k, "cpu",
+                                                              seed=E)
+        xs, rs = x.requires_grad_(True), router.requires_grad_(True)
+        got = ops.router_gating(xs, rs, k)
+        assert all(torch.equal(a.detach(), b)
+                   for a, b in zip(got, (w, ids, probs)))
+        torch.autograd.backward((got[0], got[2]), (dw, dp))
+        want = router_gating_bwd_plain(x.detach(), router.detach(), w, ids,
+                                       probs, dw, dp)
+        assert torch.equal(xs.grad, want[0]) and torch.equal(rs.grad, want[1])
+    assert ops.launch_counts() == before
 
 
 def test_mlstm_on_the_cpu_takes_the_plain_version():
@@ -888,3 +929,91 @@ def test_checkpoint_of_a_card_trained_model_round_trips(cuda, tmp_path):
     assert hashlib.sha256(params_to_bytes(loaded)).hexdigest() == file_sha
     assert build_tree_dag(params_to_parts(loaded)).root == \
         build_tree_dag(params_to_parts(trained)).root
+
+
+#: gate R1's cases: (T, D, E, K, ties); qwen2-moe-a2.7b's router at one
+#: micro-batch of training (T = 2048) and two (4096), a ragged T, the
+#: reduced config's E = 8, K = 2 at D = 256, the kernel's widest rows,
+#: and constructed ties
+GATING_BWD_CASES = [(2048, 2048, 60, 4, False), (4096, 2048, 60, 4, False),
+                    (97, 2048, 60, 4, False), (4096, 256, 8, 2, False),
+                    (300, 1024, 64, 8, False), (1, 2048, 60, 4, False),
+                    (2050, 2048, 60, 4, True)]
+
+
+def _r1(got, p32, p64):
+    """Gate R1's reading, as a ratio to its bound: max|got - g64| over
+    2 max|g32 - g64| + 1e-6 max|g64|."""
+    err = lambda a: (a.double() - p64).abs().max().item()
+    return err(got) / (2 * err(p32) + 1e-6 * p64.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,D,E,K,ties", GATING_BWD_CASES)
+def test_gating_bwd_cuda_holds_gate_r1(cuda, T, D, E, K, ties):
+    """The gating backward kernel against its plain version in float64
+    (g64) and fp32 (g32) under gate R1, for dlogits, dx and drouter; two
+    launches agree to the bit; one launch counted under moe_gating_bwd."""
+    args = _gating_bwd_inputs(T, D, E, K, cuda, seed=T + E, ties=ties)
+    x, router, gating = args[0], args[1], args[2:]
+    as64 = [a.double() if a.is_floating_point() else a for a in args]
+    before = ops.launch_counts()["moe_gating_bwd"]
+    dl = gating_bwd_cuda(*gating)
+    assert ops.launch_counts()["moe_gating_bwd"] == before + 1
+    again = gating_bwd_cuda(*gating)
+    dx, dr = router_gating_bwd_cuda(*args)
+    want32 = (gating_bwd_plain(*gating), *router_gating_bwd_plain(*args))
+    want64 = (gating_bwd_plain(*as64[2:]), *router_gating_bwd_plain(*as64))
+    torch.cuda.synchronize()
+    assert torch.equal(dl, again) and dl.dtype == torch.float32
+    for name, a, b, c in zip(("dlogits", "dx", "drouter"), (dl, dx, dr),
+                             want32, want64):
+        assert bool(torch.isfinite(a).all()), name
+        assert _r1(a, b, c) <= 1.0, (name, _r1(a, b, c))
+
+
+@pytest.mark.gpu
+def test_router_gating_function_on_the_card_runs_both_kernels(cuda):
+    """Under grad on the card, ``ops.router_gating`` launches the router
+    kernel forward and the gating backward kernel backward, once each; its
+    forward is the no-grad forward to the bit, its gradients those of
+    ``router_gating_bwd_cuda``."""
+    x, router, *_ , dw, dp = _gating_bwd_inputs(2048, 2048, 60, 4, cuda)
+    xs, rs = x.clone().requires_grad_(True), router.clone().requires_grad_(True)
+    before = ops.launch_counts()
+    got = ops.router_gating(xs, rs, 4)
+    torch.autograd.backward((got[0], got[2]), (dw, dp))
+    after = ops.launch_counts()
+    assert after["moe_gating"] == before["moe_gating"] + 1
+    assert after["moe_gating_bwd"] == before["moe_gating_bwd"] + 1
+    with torch.no_grad():
+        want = router_gating_cuda(x, router, 4)
+    assert all(torch.equal(a.detach(), b) for a, b in zip(got, want))
+    dx, dr = router_gating_bwd_cuda(x, router, *want, dw, dp)
+    torch.cuda.synchronize()
+    assert torch.equal(xs.grad, dx) and torch.equal(rs.grad, dr)
+
+
+@pytest.mark.gpu
+def test_gating_bwd_cuda_refuses_what_it_cannot_take(cuda):
+    """On the card there is no hand-over to the plain version."""
+    before = ops.launch_counts()["moe_gating_bwd"]
+    x, router, w, ids, probs, dw, dp = _gating_bwd_inputs(8, 64, 60, 4, cuda)
+    _, _, w65, ids65, p65, dw65, dp65 = _gating_bwd_inputs(8, 64, 65, 4, cuda)
+    refused = {
+        "E must be": (w65, ids65, p65, dw65, dp65),
+        "float32": (w, ids, probs.double(), dw, dp),
+        "int32": (w, ids.long(), probs, dw, dp),
+        "contiguous": (w, ids, probs, dw, dp.T.contiguous().T),
+        "dprobs is": (w, ids, probs, dw, dp[:, :30].contiguous()),
+        "\\(T, K\\)": (w, ids, probs, dw[:, :2].contiguous(), dp),
+    }
+    for match, args in refused.items():
+        with pytest.raises(ValueError, match=match):
+            gating_bwd_cuda(*args)
+    with pytest.raises(ValueError, match="k must be"):
+        _, _, w9, ids9, p9, dw9, dp9 = _gating_bwd_inputs(8, 64, 16, 9, "cpu")
+        gating_bwd_cuda(*(a.to(cuda) for a in (w9, ids9, p9, dw9, dp9)))
+    with pytest.raises(ValueError, match="float32"):
+        router_gating_bwd_cuda(x.double(), router, w, ids, probs, dw, dp)
+    assert ops.launch_counts()["moe_gating_bwd"] == before

@@ -357,9 +357,11 @@ def test_stacked_gradients_come_out_stacked():
 
 
 def test_train_step_refuses_what_is_not_ported():
-    for arch in ("qwen2-moe-a2.7b", "xlstm-1.3b"):
-        with pytest.raises(NotImplementedError):
-            make_train_step(get_config(arch).reduced(), constant_schedule(1e-3))
+    """MoE trains (``tests/test_torch_moe_train.py``); xLSTM, sliding
+    windows and M-RoPE do not yet."""
+    with pytest.raises(NotImplementedError):
+        make_train_step(get_config("xlstm-1.3b").reduced(),
+                        constant_schedule(1e-3))
     _, cfg = _reduced()
     for bad in (dict(window=64), dict(mrope=True)):
         with pytest.raises(NotImplementedError):
@@ -405,6 +407,9 @@ def test_launch_train_refuses_a_missing_card(monkeypatch):
 # ------------------------------------------- ops without a backward refuse
 
 def test_ops_without_a_backward_raise_under_grad():
+    """``router_gating`` differentiates through ``RouterGating``
+    (``tests/test_torch_moe_train.py``); the logits-in ``moe_gating``,
+    paged decode and the mLSTM scan still refuse."""
     rng = np.random.default_rng(0)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
     x, router = f(5, 16).requires_grad_(True), f(16, 8)
@@ -417,7 +422,6 @@ def test_ops_without_a_backward_raise_under_grad():
              f(1, 2, 16, 16), f(1, 2, 16), f(1, 2))
     calls = {"paged_decode_attention": lambda: ops.paged_decode_attention(*paged),
              "moe_gating": lambda: ops.moe_gating(x @ router, 2),
-             "router_gating": lambda: ops.router_gating(x, router, 2),
              "mlstm_scan": lambda: ops.mlstm_scan(*mlstm)}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name} has no backward"):
