@@ -1950,7 +1950,7 @@ def dropped_by_call(cfg, records):
     return out
 
 
-def moe_train_parity_phase(torch, device="cuda", cfg=None):
+def moe_train_parity_phase(torch, device="cuda"):
     """Gate T2m: a reduced qwen2-moe-a2.7b trained on the card in fp32 and
     on the CPU in fp32 and float64 from the same state and batches, with 1
     and 2 micro-batches, the CPU runs replaying the card's routing: step
@@ -1960,7 +1960,7 @@ def moe_train_parity_phase(torch, device="cuda", cfg=None):
     cpu64 ties, at most 1% of the rows; tokens dropped in some layer.  The
     card launches the flash forward and backward, the router kernel and
     the gating backward in every layer of every micro-batch, the CPU
-    never.  ``device`` and ``cfg`` rehearse it on the CPU."""
+    never.  ``device="cpu"`` rehearses it on the CPU at S=64."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1971,7 +1971,7 @@ def moe_train_parity_phase(torch, device="cuda", cfg=None):
     from repro_torch.train import make_train_step, train_state_init
     from repro_torch.tree import leaves
 
-    cfg = cfg or get_config("qwen2-moe-a2.7b").reduced(**T2M_REDUCED)
+    cfg = get_config("qwen2-moe-a2.7b").reduced(**T2M_REDUCED)
     require(cfg.hd == 64 and cfg.arch == "moe", f"T2m config {cfg}")
     S = 2048 if device == "cuda" else 64
     base = train_state_to_numpy(

@@ -49,6 +49,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro.configs import get_config as jax_get_config
 from repro.data import make_batch_iterator as jax_batches
 from repro.models import decoder as jdec
@@ -440,3 +441,103 @@ def test_launch_train_runs_moe_on_the_cpu():
                               "--batch", "4", "--microbatches", "2"])
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
     assert all(h["aux"] > 0 for h in hist)
+
+
+# ------------------------------------------- the smoke's phases, rehearsed
+
+@pytest.mark.parametrize("groups,ids,want", [
+    (1, [[0]] * 8, 6),
+    (1, [[0], [1], [2], [3], [0], [1], [2], [3]], 0),
+    (1, [[0], [0], [0], [1], [1], [1], [2], [3]], 2),
+    (1, [[0, 1]] * 8, 8),
+    (2, [[0], [0], [1], [1], [2], [2], [3], [3]], 4),
+], ids=["one_expert", "balanced", "two_over", "top2", "two_groups"])
+def test_dropped_by_call_counts_slots_past_capacity(groups, ids, want):
+    """``chip_smoke.dropped_by_call`` against counts made by hand: 8
+    tokens, 4 experts, capacity factor 1.0, so each expert keeps
+    int(K * Tg / 4) slots of its group (2 at top-1 in one group, 4 at
+    top-2, 1 in each of two groups of 4 tokens)."""
+    cfg = get_config("qwen2-moe-a2.7b").reduced(
+        n_experts=4, moe_top_k=len(ids[0]), capacity_factor=1.0,
+        moe_groups=groups)
+    got = chip_smoke.dropped_by_call(cfg, [torch.tensor(ids,
+                                                        dtype=torch.int32)])
+    assert got == [want]
+
+
+def test_replaying_gating_takes_the_recorded_ids():
+    """Under ``chip_smoke.replaying_gating``, ``ops.router_gating`` under
+    grad (``RouterGating``'s plain forward) returns the recorded ids, the
+    plain probabilities, and the gathered probabilities over their sum in
+    the recorded order; rows whose expert set the plain top-k would choose
+    otherwise are reported with every row's top-k gap; a call past the
+    records fails; the plain forward is put back afterwards."""
+    from repro_torch.kernels import moe_gating as mg
+
+    real = mg.router_gating_plain
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(16, 32, generator=g)
+    router = torch.randn(32, 8, generator=g) * 0.3
+    _, own, probs = real(x, router, 2)
+    rec = own.clone()
+    rec[:4] = (own[:4] + 1) % 8           # another expert set
+    rec[4] = own[4].flip(0)               # the same set, the other order
+    seen = []
+    with chip_smoke.replaying_gating([rec], seen):
+        w, ids, p = ops.router_gating(x.clone().requires_grad_(), router, 2)
+        with pytest.raises(chip_smoke.SmokeFailure):
+            ops.router_gating(x, router, 2)
+    assert mg.router_gating_plain is real
+    assert torch.equal(ids, rec) and torch.equal(p.detach(), probs)
+    sel = probs.gather(1, rec.long())
+    assert torch.equal(w.detach(), sel / (sel[:, :1] + sel[:, 1:]))
+    differ, gap = seen[0]
+    assert differ.tolist() == [0, 1, 2, 3]
+    assert torch.equal(gap, chip_smoke.topk_gap(probs, 2))
+
+
+def test_moe_train_parity_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.moe_train_parity_phase`` (gate T2m) end to end on the
+    CPU at its reduced config and S=64: the "card" run is a CPU fp32 run
+    whose expert ids the cpu32 and cpu64 runs replay, every record's row
+    count checked; tokens drop; no kernel launches."""
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    out = chip_smoke.moe_train_parity_phase(torch, device="cpu")
+    (line,) = lines
+    assert line["phase"] == "moe_train_parity" and line["seq"] == 64
+    cfg = get_config("qwen2-moe-a2.7b").reduced(**chip_smoke.T2M_REDUCED)
+    for mb in (1, 2):
+        r = out[f"mb{mb}"]
+        calls = cfg.n_layers * mb * (1 + chip_smoke.T2_STEPS)
+        assert r["slots_by_call"] == [2 * 64 * cfg.moe_top_k // mb] * calls
+        assert r["grad_leaf_ratio_to_bound_max"] <= 1.0
+        assert max(max(s) for s in r["step_ratio_to_bound"]) <= 1.0
+        assert r["rows"] == calls * 2 * 64 // mb
+        assert r["rows_routed_otherwise"] <= \
+            chip_smoke.T2M_TIE_SHARE * r["rows"]
+        assert sum(map(sum, r["dropped_by_pass_and_layer"])) > 0
+        assert not any(r["launches_cuda"].values())
+
+
+def test_moe_training_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.moe_training_phase`` (gate T3m) end to end on the CPU
+    at a narrow qwen2-moe with 60 experts, top-2 and S=64, so that some
+    experts keep no token and the per-expert gradient check meets both
+    of its halves: nonzero where an expert kept a token, zero where it
+    kept none."""
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    cfg = get_config("qwen2-moe-a2.7b").reduced(
+        n_layers=2, d_model=64, vocab=256, n_experts=60, moe_top_k=2,
+        capacity_factor=1.25)
+    chip_smoke.moe_training_phase(torch, device="cpu", cfg=cfg)
+    (line,) = lines
+    assert line["phase"] == "moe_training" and line["seq"] == 64
+    assert not any(line["launches"].values())
+    assert all(0 < n < cfg.n_experts for n in line["experts_kept_by_layer"])
+    for name in ("blocks.moe.w_gate", "blocks.moe.w_up", "blocks.moe.w_down"):
+        assert line["expert_grads"][name]["nonzero"] == \
+            sum(line["experts_kept_by_layer"])
+    assert max(map(max, line["dropped_share_by_step_and_layer"])) > 0
+    assert len(line["timed_steps"]) == 2
