@@ -30,13 +30,15 @@ Phases, each printed as one JSON object per line:
    H=32, S=2048 causal, window 128, 17, a ragged S=2050, non-causal;
    ragged 97 with B=2; window 1; the serving layout's repeated k/v; q x 8;
    at minicpm-2b's hd=64, H=36: causal, ragged 2050, window 128, and q x 8
-   in fp32 only),
+   in fp32 only; gate K-hy, hymba-1.5b's H=25, hd=64 under its 2048
+   window at S=4096 and at a ragged 3000),
    fp32 and bf16, against ``flash_attention_plain``, each output equal to
    the bit with and without the lse output; timed at granite-8b's (H=32)
-   and qwen2-moe-a2.7b's (H=16) causal prefill of 2048 tokens and at
-   minicpm-2b's (H=36, hd=64), with ``scaled_dot_product_attention``
-   beside it as a yardstick only, and the kernel's ptxas registers,
-   spills and shared memory;
+   and qwen2-moe-a2.7b's (H=16) causal prefill of 2048 tokens, at
+   minicpm-2b's (H=36, hd=64) and at hymba-1.5b's windowed prefill of
+   4096 tokens, with ``scaled_dot_product_attention`` (causal, or a
+   boolean window mask) beside it as a yardstick only, and the kernel's
+   ptxas registers, spills and shared memory;
    flash_backward — the backward kernel under gate T1 over
    ``FLASH_BWD_CASES`` (each case's reading over its bound), two launches
    bit-equal, the forward's lse within 1e-5 of the plain version's; timed
@@ -74,7 +76,8 @@ Phases, each printed as one JSON object per line:
    its 60 experts, top-4, each with fp32 (1e-4) and int8 (1e-2) pools,
    served on the card and on the CPU (plain versions) with the same
    weights: logits must agree and only the card's run launches the
-   kernels; then train_parity, gate T2; then moe_train_parity, gate T2m;
+   kernels; then hybrid_parity, gate Y1; then train_parity, gate T2; then
+   moe_train_parity, gate T2m;
 7. serving  — granite-8b at full width and full depth in fp32 with
    seeded random weights: a ``BatchEngine`` admits 8
    sessions (two 2048-token prompts through the flash kernel, six short
@@ -95,7 +98,11 @@ Phases, each printed as one JSON object per line:
    mLSTM layers through the mLSTM kernel, under gate G3; then the state
    handoff, layer by layer and end to end, with gate G1 on the kernel's
    real inputs in every mLSTM layer, and a profile of a few steps;
-10. training — xlstm-1.3b released, then minicpm-2b at full width and
+   serving_hybrid — xlstm-1.3b released, then hymba-1.5b at full width
+   and depth in fp32 (1,644,856,000 parameters; window 2048 on every
+   layer) served per slot under gate Y2, ``launch.serve.main`` once on
+   the card, gate Y3's handoff, and a profile of a few steps;
+10. training — hymba-1.5b released, then minicpm-2b at full width and
    depth in fp32 (2.72 B parameters, AdamW) trained 4 steps at B=1,
    S=2048 through ``repro_torch.launch.train.main``, every layer's
    attention through the flash forward and backward kernels, under gate
@@ -182,6 +189,41 @@ bounds are fixed in advance, each derived from a float64 reference:
   sLSTM c, n and h within 1e-4 of their largest entry and every m within
   1e-4; and the end-to-end logits of the two routes differ by no more
   than one ulp of the input embeddings moves prefill(2048)'s.
+
+The hybrid path's bounds (hymba-1.5b: attention under a 2048 window in a
+ring-buffer cache beside a Mamba branch, served per slot), fixed before
+this script's first run of them:
+
+* K-hy, the flash kernel at hymba's shape: ``FLASH_CASES`` rows
+  ``hymba_window2048`` (B=1, H=25, S=4096, window 2048, hd=64) and
+  ``hymba_ragged3000`` (S=3000) under the flash bounds as written: 1e-4
+  in fp32, 2e-2 in bf16, the output equal to the bit with and without
+  the lse output.
+* Y1, a reduced hymba-1.5b (``HYBRID_REDUCED``: L=4, d=256, H=4, Hk=1,
+  hd=64, window 64, ssm_state 8, d_inner 512, vocab 512) served through
+  ``BatchEngine`` on the card in fp32 and on the CPU in fp32 and float64
+  on the same weights and the card's greedy feed, prompts 2048, 2100,
+  12, 37, 64, 100, 200, 300, 32 decode steps; over every prefill's and
+  step's logits: max|card32 - cpu64| <= max(1e-4, 2 max|cpu32 - cpu64|).
+  The card launches ``flash_attention`` exactly 4 x 2 times and nothing
+  else; the CPU runs launch nothing.
+* Y2, hymba-1.5b at full width and depth, fp32, 8 sessions, page 32,
+  prompts 4096, 3000, 2048, 2047, 12, 37, 100, 256, 32 greedy steps per
+  slot: finite logits; ``flash_attention`` launched exactly 32 x 3 times
+  and nothing else; 0 pages after close; no session holds more than
+  175,554,560 B of cache (32 x (2 x 2048 x 5 x 64 x 4 + 3200 x 16 x 4 +
+  3 x 3200 x 4)), and every session whose length reached 2048 holds
+  exactly that.  ``launch.serve.main(["--arch", "hymba-1.5b",
+  "--prompt-len", "2100", "--gen", "8", "--batch", "1"])`` on the card
+  ends with 8 tokens in the vocabulary.
+* Y3, the handoff on Y2's model, in G3's form: fed each layer the same
+  fp32 input, prefill(4095) + one decode step against prefill(4096)
+  leaves the Mamba h and conv tail, and the ring's k and v slot for
+  slot, within 1e-4 of their largest entry; |logits(4095 + 1) -
+  logits(4096)| is no larger than what one ulp of the input embeddings
+  moves prefill(4096)'s logits in the same run.
+* Y4: every earlier gate passes as written, and the last line is the
+  contract's.
 
 The training path's bounds, fixed before this script's first run of them:
 
@@ -435,6 +477,19 @@ XLSTM_SMALL_STEPS = 16
 #: xlstm-1.3b's recurrent state of one session: per layer C (4, 1024,
 #: 1024), n (4, 1024), m (4) and the sLSTM's four (4, 512), in fp32
 XLSTM_STATE_BYTES = 807_666_432
+#: hymba-1.5b (Y2): two prompts past the 2048 window (4096 in 32 Mamba
+#: chunks, a ragged 3000 in one), one that fills it, one a token short
+#: that crosses it in decode, four short ones
+HYBRID_PROMPTS = [4096, 3000, 2048, 2047, 12, 37, 100, 256]
+#: the reduced hymba of gate Y1 and its prompts: two through the flash
+#: branch, the ring filled exactly (64), three through the masked branch
+#: over the ring (the reference's hazard), two that wrap it in decode
+HYBRID_REDUCED = {"n_layers": 4}
+HYBRID_SMALL_PROMPTS = [2048, 2100, 12, 37, 64, 100, 200, 300]
+HYBRID_SMALL_STEPS = 32
+#: hymba-1.5b's cache of one session at the window: per layer k and v
+#: (2048, 5, 64), the Mamba h (3200, 16) and conv (3, 3200), in fp32
+HYBRID_STATE_BYTES = 175_554_560
 GATING_T = (1, 8, 2048, 2050)
 GATING_EK = ((60, 4), (16, 4), (64, 8))
 #: two runs of one feed may route a token differently only where its K-th
@@ -748,7 +803,9 @@ FLASH_CASES = [("causal", 1, 32, 2048, 2048, True, 0, "bshd", 128),
                ("minicpm", 1, 36, 2048, 2048, True, 0, "bshd", 64),
                ("minicpm_ragged", 1, 36, 2050, 2050, True, 0, "bshd", 64),
                ("minicpm_window128", 1, 36, 2048, 2048, True, 128, "bshd", 64),
-               ("minicpm_large", 1, 36, 2048, 2048, True, 0, "large", 64)]
+               ("minicpm_large", 1, 36, 2048, 2048, True, 0, "large", 64),
+               ("hymba_window2048", 1, 25, 4096, 4096, True, 2048, "bshd", 64),
+               ("hymba_ragged3000", 1, 25, 3000, 3000, True, 2048, "bshd", 64)]
 #: rows checked in fp32 only: q x 8 at hd=64 makes near one-hot rows whose
 #: outputs reach 4-8 in magnitude, where one bf16 ulp is 0.03125, past the
 #: 2e-2 bf16 bound (an H100 run read exactly that); the trained path is
@@ -799,23 +856,35 @@ def flash_phase(torch, flush, build_log: str):
             tol = 1e-4 if dtype == torch.float32 else 2e-2
             require(errs[key] <= tol, f"flash {key}: err {errs[key]} > {tol}")
 
-    def timed(B, H, S, dtype=torch.float32, hd=hd):
-        """Kernel, plain and SDPA times at a causal prefill of S tokens,
-        and the bound: only the unmasked pairs' FLOP, each input read and
-        the output written once."""
+    def timed(B, H, S, dtype=torch.float32, hd=hd, window=0):
+        """Kernel, plain and SDPA times at a causal prefill of S tokens
+        (under a sliding ``window``: SDPA with the same boolean mask), and
+        the bound: only the unmasked pairs' FLOP, each input read and the
+        output written once."""
         q, k, v = flash_inputs(torch, B, H, S, S, hd, dtype, "bshd", g)
-        flops = 4 * B * H * hd * (S * (S + 1) // 2)
+        pairs = (sum(min(i + 1, window) for i in range(S)) if window
+                 else S * (S + 1) // 2)
+        flops = 4 * B * H * hd * pairs
         nbytes = 4 * B * H * S * hd * q.element_size()
         peak = PEAK_FLOPS[str(dtype).split(".")[1]]
-        res = {"kernel_ms": time_ms(
-            torch, lambda: fa.flash_attention_cuda(q, k, v), flush=flush)}
+        res = {"kernel_ms": time_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, window=window), flush=flush)}
         if dtype == torch.float32:
             res["plain_ms"] = time_ms(
-                torch, lambda: fa.flash_attention_plain(q, k, v), iters=5,
-                flush=flush)
-            res["library_ms"] = time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), flush=flush)
+                torch, lambda: fa.flash_attention_plain(q, k, v,
+                                                        window=window),
+                iters=5, flush=flush)
+            if window:
+                i = torch.arange(S, device="cuda")
+                keep = (i[None, :] <= i[:, None]) & (
+                    i[None, :] > i[:, None] - window)
+                res["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=keep), flush=flush)
+            else:
+                res["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True), flush=flush)
         res["bound_ms"] = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
         res["bound_by"] = ("operations" if flops / peak
                            >= nbytes / HBM_BYTES_PER_S else "bytes")
@@ -833,6 +902,9 @@ def flash_phase(torch, flush, build_log: str):
     # qwen2-moe-a2.7b's prefill: 16 heads; minicpm-2b's trained forward
     res["H16"] = timed(B, 16, S)
     res["H36_hd64"] = timed(B, 36, S, hd=64)
+    # hymba-1.5b's prefill of 4096 tokens: H=25, hd=64, window 2048
+    res["hymba_H25_hd64_S4096_window2048"] = timed(B, 25, 4096, hd=64,
+                                                   window=2048)
     lib = build.load("flash_attention", fa._SIGNATURES)
     smem = lib.repro_flash_attention_smem_bytes
     smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int]
@@ -1641,16 +1713,22 @@ def expected_launches(cfg, prompts, steps):
     step, flash per layer per long prompt, gating per layer per pass; for
     xLSTM (no attention, served per slot) the mLSTM scan per mLSTM layer
     per prefill, since a prefill against the cache takes the chunkwise
-    form, and none in decode."""
+    form, and none in decode; for the hybrid arch (served per slot, its
+    Mamba plain PyTorch) flash per layer per long prompt, none in
+    decode."""
     from repro_torch.models import decoder
 
     L = cfg.n_layers
+    n_long = sum(p.shape[1] >= 2048 for p in prompts)
+    if cfg.arch == "hybrid":
+        return {"paged_decode_attention": 0, "flash_attention": L * n_long,
+                "flash_attention_bwd": 0, "moe_gating": 0,
+                "moe_gating_bwd": 0, "mlstm_scan": 0}
     if cfg.arch == "ssm":
         n_mlstm = sum(not decoder._is_slstm(cfg, j) for j in range(L))
         return {"paged_decode_attention": 0, "flash_attention": 0,
                 "flash_attention_bwd": 0, "moe_gating": 0,
                 "moe_gating_bwd": 0, "mlstm_scan": n_mlstm * len(prompts)}
-    n_long = sum(p.shape[1] >= 2048 for p in prompts)
     return {"paged_decode_attention": L * steps, "flash_attention": L * n_long,
             "flash_attention_bwd": 0,
             "moe_gating": L * (len(prompts) + steps) if cfg.arch == "moe" else 0,
@@ -1722,6 +1800,53 @@ def small_parity_phase(torch):
                                for k, r in ties.items()}})
 
 
+def served_three_ways(torch, cfg, seed, prompts, steps, device="cuda"):
+    """Serve a reduced ``cfg`` per slot through ``BatchEngine`` three
+    times on one seeded init: on ``device`` in float32 (the "card32" run),
+    then on the CPU in float32 and in float64, both fed the card32 run's
+    greedy tokens.  Returns each run's ``_drive`` tuple and launch counts,
+    and the per-call max|card32 - cpu64| and max|cpu32 - cpu64| (each
+    prefill's row, then each step)."""
+    import numpy as np
+
+    from repro_torch.core.simnet import Sim
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoder
+    from repro_torch.params import params_from_numpy, params_to_numpy
+    from repro_torch.serving import BatchEngine, ShardModule
+
+    L = cfg.n_layers
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = decoder.init_params(cfg, gen, device)
+    tree = params_to_numpy(params)
+    runs = {"card32": params,
+            "cpu32": params_from_numpy(tree, "cpu"),
+            "cpu64": params_from_numpy(_cast_tree(tree, np.float64), "cpu")}
+    out, counts = {}, {}
+    for name, p in runs.items():
+        sim = Sim(seed=0)
+        eng = BatchEngine(ShardModule(cfg, p, (0, L), True, True), sim,
+                          n_slots=len(prompts), page_size=32,
+                          device=device if name == "card32" else "cpu")
+        require(not eng.fused, f"{cfg.name} must serve per slot")
+        ops.reset_launch_counts()
+        out[name] = _drive(eng, sim, prompts, steps,
+                           None if name == "card32" else out["card32"][4])
+        counts[name] = ops.launch_counts()
+    require(not any(counts["cpu32"].values())
+            and not any(counts["cpu64"].values()),
+            f"the CPU runs launched kernels: {counts}")
+    require(out["cpu64"][0].dtype == np.float64, "the fp64 run is not fp64")
+
+    def diffs(a, b):          # max |a - b| per prefill row and per step
+        return ([float(np.abs(a[0][i] - b[0][i]).max())
+                 for i in range(len(prompts))]
+                + [float(np.abs(x - y).max()) for x, y in zip(a[2], b[2])])
+
+    return (out, counts, diffs(out["card32"], out["cpu64"]),
+            diffs(out["cpu32"], out["cpu64"]))
+
+
 def xlstm_parity_phase(torch):
     """Gate G2: a reduced xlstm-1.3b (L=8, so block 7 is the sLSTM;
     d=256, vocab 512, mLSTM head dim 128) served through ``BatchEngine``
@@ -1733,50 +1858,18 @@ def xlstm_parity_phase(torch):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.simnet import Sim
-    from repro_torch.kernels import ops
-    from repro_torch.models import decoder
-    from repro_torch.params import params_from_numpy, params_to_numpy
-    from repro_torch.serving import BatchEngine, ShardModule
 
     cfg = get_config("xlstm-1.3b").reduced(n_layers=8)
     L = cfg.n_layers
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    params = decoder.init_params(cfg, gen, "cuda")
-    tree = params_to_numpy(params)
-    runs = {"card32": params,
-            "cpu32": params_from_numpy(tree, "cpu"),
-            "cpu64": params_from_numpy(_cast_tree(tree, np.float64), "cpu")}
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
                for n in XLSTM_SMALL_PROMPTS]
     want = expected_launches(cfg, prompts, XLSTM_SMALL_STEPS)
     require(want["mlstm_scan"] == 7 * len(prompts), f"launches {want}")
-    out, counts = {}, {}
-    for name, p in runs.items():
-        sim = Sim(seed=0)
-        eng = BatchEngine(ShardModule(cfg, p, (0, L), True, True), sim,
-                          n_slots=len(prompts), page_size=32,
-                          device="cuda" if name == "card32" else "cpu")
-        require(not eng.fused, "xlstm must serve per slot")
-        ops.reset_launch_counts()
-        out[name] = _drive(eng, sim, prompts, XLSTM_SMALL_STEPS,
-                           None if name == "card32" else out["card32"][4])
-        counts[name] = ops.launch_counts()
+    _, counts, card, cpu = served_three_ways(torch, cfg, 5, prompts,
+                                             XLSTM_SMALL_STEPS)
     require(counts["card32"] == want, f"card launches {counts['card32']}, "
             f"want {want}")
-    require(not any(counts["cpu32"].values())
-            and not any(counts["cpu64"].values()),
-            f"the CPU runs launched kernels: {counts}")
-    require(out["cpu64"][0].dtype == np.float64, "the fp64 run is not fp64")
-
-    def diffs(a, b):          # max |a - b| per prefill row and per step
-        return ([float(np.abs(a[0][i] - b[0][i]).max())
-                 for i in range(len(prompts))]
-                + [float(np.abs(x - y).max()) for x, y in zip(a[2], b[2])])
-
-    card = diffs(out["card32"], out["cpu64"])
-    cpu = diffs(out["cpu32"], out["cpu64"])
     limit = max(1e-4, 2 * max(cpu))
     emit({"phase": "small_parity", "config": f"xlstm-1.3b reduced(L={L}, "
           f"d={cfg.d_model}, vocab={cfg.vocab}, slstm_every="
@@ -1788,6 +1881,59 @@ def xlstm_parity_phase(torch):
           "cpu32_vs_cpu64_per_call": cpu})
     require(max(card) <= limit, f"gate G2 fails: card32 vs cpu64 {max(card)} "
             f"> {limit}")
+
+
+def hybrid_parity_phase(torch, device="cuda", prompts=None):
+    """Gate Y1: a reduced hymba-1.5b (``HYBRID_REDUCED``: L=4, d=256, H=4,
+    Hk=1, hd=64, window 64, ssm_state 8, d_inner 512) served per slot
+    through ``BatchEngine`` on ``device`` (the card) in float32, then on
+    the CPU in float32 and in float64 on the same weights and the card's
+    greedy feed: ``HYBRID_SMALL_PROMPTS`` (two through the flash branch;
+    64 fills the ring exactly; 100, 200 and 300 take the masked branch
+    over the ring, the reference's hazard; 12 and 37 wrap it in decode),
+    ``HYBRID_SMALL_STEPS`` greedy steps.  Over every prefill's and step's
+    logits: max|card32 - cpu64| <= max(1e-4, 2 max|cpu32 - cpu64|).  The
+    card launches ``flash_attention`` once per layer per prompt of at
+    least ``FLASH_MIN_SEQ`` tokens (4 x 2), nothing else; the CPU runs
+    launch nothing.  ``device="cpu"`` (with shorter ``prompts``) rehearses
+    the phase on the CPU, where no run launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("hymba-1.5b").reduced(**HYBRID_REDUCED)
+    L = cfg.n_layers
+    lengths = HYBRID_SMALL_PROMPTS if prompts is None else prompts
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+               for n in lengths]
+    want = expected_launches(cfg, prompts, HYBRID_SMALL_STEPS)
+    if device == "cuda":
+        require(want["flash_attention"] == L * 2
+                and sum(want.values()) == L * 2, f"launches {want}")
+    else:
+        want = {k: 0 for k in want}
+    t0 = time.perf_counter()
+    out, counts, card, cpu = served_three_ways(
+        torch, cfg, 7, prompts, HYBRID_SMALL_STEPS, device)
+    require(counts["card32"] == want, f"card launches {counts['card32']}, "
+            f"want {want}")
+    limit = max(1e-4, 2 * max(cpu))
+    line = {"phase": "hybrid_parity", "config": f"hymba-1.5b reduced(L={L}, "
+            f"d={cfg.d_model}, H={cfg.n_heads}, Hk={cfg.n_kv_heads}, "
+            f"window={cfg.window}, ssm_state={cfg.ssm_state}, d_inner="
+            f"{cfg.d_in}, vocab={cfg.vocab})", "device": device,
+            "prompts": list(lengths), "decode_steps": HYBRID_SMALL_STEPS,
+            "launches_card32": counts["card32"],
+            "max_abs_logit_err": {"card32_vs_cpu64": max(card),
+                                  "cpu32_vs_cpu64": max(cpu)},
+            "y1_limit": limit, "card32_vs_cpu64_per_call": card,
+            "cpu32_vs_cpu64_per_call": cpu,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    require(max(card) <= limit, f"gate Y1 fails: card32 vs cpu64 {max(card)} "
+            f"> {limit}")
+    return line
 
 
 #: T2: a reduced minicpm-2b (hd=64, so the kernels take it) at B=2, S=2048
@@ -2263,6 +2409,169 @@ def serving_xlstm_phase(torch):
     return counts
 
 
+def serving_hybrid_phase(torch, device="cuda", cfg=None,
+                         prompts=HYBRID_PROMPTS):
+    """Gate Y2: hymba-1.5b at full width and depth in fp32 served per slot
+    (8 sessions, page 32, ``HYBRID_PROMPTS``, 32 greedy steps), every
+    prefill of at least 2048 tokens through the flash kernel at window
+    2048: finite logits; ``flash_attention`` launched 32 x 3 times,
+    nothing else; 0 pages after close; no session holds more than
+    ``HYBRID_STATE_BYTES`` of cache, and every one whose length reached
+    the window holds exactly that.  Then ``launch.serve.main`` on the
+    card (a 2100-token prompt, 8 tokens), gate Y3's handoff on the first
+    prompt (4096 tokens), layer by layer and end to end, and a profile of
+    a few steps.  ``device="cpu"`` with a reduced ``cfg`` and short
+    ``prompts`` rehearses it on the CPU (no launches, no profile)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.simnet import Sim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import decoder
+    from repro_torch.serving import BatchEngine, ShardModule
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    full = cfg is None
+    cfg = get_config("hymba-1.5b") if full else cfg
+    L = cfg.n_layers
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = decoder.init_params(cfg, gen, device)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    module = ShardModule(cfg, params, (0, L), is_first=True, is_last=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+               for n in prompts]
+    lengths = [p.shape[1] for p in prompts]
+    want = expected_launches(cfg, prompts, SERVE_STEPS)
+    if full:
+        require(want["flash_attention"] == 32 * 3
+                and sum(want.values()) == 32 * 3, f"launches {want}")
+    if not on_card:
+        want = {k: 0 for k in want}
+    # one session's cache at the window: k and v, h and conv, every layer
+    at_window = L * (2 * cfg.window * cfg.n_kv_heads * cfg.hd * 4
+                     + cfg.d_in * cfg.ssm_state * 4 + 3 * cfg.d_in * 4)
+    if full:
+        require(at_window == HYBRID_STATE_BYTES, f"{at_window} bytes")
+
+    sim = Sim(seed=0)
+    eng = BatchEngine(module, sim, n_slots=8, page_size=32, device=device)
+    require(not eng.fused, "hymba must serve per slot")
+    ops.reset_launch_counts()
+    first, prefill_s, logits, step_s, feed, held = _drive(
+        eng, sim, prompts, SERVE_STEPS)
+    counts = ops.launch_counts()
+    pages_after = eng.stats["pages"]
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    del eng
+    line = {"phase": "serving_hybrid", "model": cfg.name, "n_layers": L,
+            "d_model": cfg.d_model, "window": cfg.window,
+            "params": sum(t.numel() for t in leaves(params)),
+            "init_s": init_s, "prompts": lengths,
+            "prefill_ms": [t * 1e3 for t in prefill_s],
+            "decode_steps": SERVE_STEPS,
+            "decode_ms_per_step_median": statistics.median(step_s) * 1e3,
+            "tokens_per_s": len(prompts) * SERVE_STEPS / sum(step_s),
+            "launches": counts, "pages_after_close": pages_after,
+            "cache_bytes_per_session": held,
+            "cache_bytes_at_window": at_window,
+            "max_memory_allocated_bytes": peak}
+    emit(line)
+    for out in [first] + logits:
+        require(out.shape == (len(prompts), cfg.vocab), f"shape {out.shape}")
+        require(bool(np.isfinite(out).all()), "non-finite logits")
+    require(counts == want, f"hymba launches {counts} != {want}")
+    require(pages_after == 0, f"pages after close: {pages_after}")
+    for n, b in zip(lengths, held):
+        require(b <= at_window, f"a session of {n} tokens holds {b} bytes")
+        require(n + SERVE_STEPS < cfg.window or b == at_window,
+                f"a session past the window holds {b} bytes, not {at_window}")
+
+    # the launcher, once, on the same device
+    t0 = time.perf_counter()
+    argv = ["--arch", "hymba-1.5b", "--prompt-len", "2100", "--gen", "8",
+            "--batch", "1", "--device", device]
+    serve_vocab = cfg.vocab
+    if not full:
+        argv[3] = "100"
+        argv.append("--reduced")
+        serve_vocab = get_config("hymba-1.5b").reduced().vocab
+    toks = serve.main(argv)
+    serve_s = time.perf_counter() - t0
+    require(toks.shape == (1, 8) and bool((toks >= 0).all())
+            and bool((toks < serve_vocab).all()), f"launch.serve gave {toks}")
+
+    tokens = torch.from_numpy(prompts[0]).to(device)
+    t0 = time.perf_counter()
+    handoff_by_layer_hybrid(torch, cfg, params, tokens)
+    handoff_end_to_end(torch, cfg, params, tokens, "hybrid_handoff")
+    handoff_s = time.perf_counter() - t0
+    if on_card:
+        # two steps: the profiler's bookkeeping of ~25,000 launches a
+        # per-slot step is most of this phase's seconds
+        profile_decode(torch, module, prompts, feed, steps=2)
+    emit({"phase": "serving_hybrid_done", "serve_cli_s": serve_s,
+          "handoff_s": handoff_s,
+          "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def handoff_by_layer_hybrid(torch, cfg, params, tokens):
+    """Gate Y3's handoff, layer by layer: each layer, fed the input that
+    prefill(S) gives it (all fp32), runs prefill(S) and prefill(S - 1) +
+    one decode step from a fresh cache (a ring of ``cfg.window`` slots);
+    the Mamba h and conv tail and the ring's k and v, slot for slot, lie
+    within 1e-4 of their largest entry."""
+    import dataclasses
+
+    from repro_torch.models import decoder
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    S = tokens.shape[1]
+    dev = tokens.device
+    x = params["embed"][tokens.long()]
+    pos = torch.arange(S, device=dev)[None]
+    worst = {key: 0.0 for key in ("h", "conv", "k", "v")}
+
+    def fresh():
+        c = decoder.init_cache(one, 1, S + 1, device=dev)["layers"]
+        return {key: t[0] for key, t in c.items()}
+
+    ms = []
+    for j in range(cfg.n_layers):
+        bp = decoder.layer_params(params["blocks"], j)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_next, whole, _ = decoder.run_block(cfg, bp, x, pos, fresh(), 0,
+                                             layer_idx=j)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        _, part, _ = decoder.run_block(cfg, bp, x[:, :S - 1], pos[:, :S - 1],
+                                       fresh(), 0, layer_idx=j)
+        _, part, _ = decoder.run_block(cfg, bp, x[:, S - 1:], pos[:, S - 1:],
+                                       part, S - 1, layer_idx=j)
+        for key in worst:
+            a, b = part[key], whole[key]
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            worst[key] = max(worst[key], rel)
+            require(rel <= 1e-4, f"layer {j} {key}: handoff differs by {rel} "
+                    "of its largest entry")
+        x = x_next
+    emit({"phase": "hybrid_handoff_by_layer", "S": S, "window": cfg.window,
+          "state_rel": worst, "tolerance": 1e-4,
+          "layer_ms_median": statistics.median(ms)})
+
+
 TRAIN_STEPS = 4
 
 
@@ -2564,16 +2873,17 @@ def handoff_by_layer(torch, cfg, params, tokens):
           "slstm_share_of_layer_time": sum(ms_by_kind["slstm"]) / total})
 
 
-def handoff_end_to_end(torch, cfg, params, tokens):
-    """Gate G3's end-to-end handoff on the same model: |logits(2047 + 1) -
-    logits(2048)| is no larger than what a one-ulp move of every input
-    embedding entry does to prefill(2048)'s logits in the same run."""
+def handoff_end_to_end(torch, cfg, params, tokens, phase="xlstm_handoff"):
+    """Gates G3's and Y3's end-to-end handoff on the same model: |logits(S
+    - 1 + 1) - logits(S)| is no larger than what a one-ulp move of every
+    input embedding entry does to prefill(S)'s logits in the same run."""
     from repro_torch.models import decoder
 
     S = tokens.shape[1]
+    dev = tokens.device
 
     def prefill(p, toks):
-        cache = decoder.init_cache(cfg, 1, S + 1, device="cuda")
+        cache = decoder.init_cache(cfg, 1, S + 1, device=dev)
         return decoder.prefill(p, cfg, {"tokens": toks}, cache)
 
     whole, _ = prefill(params, tokens)
@@ -2581,12 +2891,12 @@ def handoff_end_to_end(torch, cfg, params, tokens):
     step, _ = decoder.decode_step(params, cfg, tokens[:, S - 1], cache)
     del cache
     moved = dict(params, embed=torch.nextafter(
-        params["embed"], torch.tensor(float("inf"), device="cuda")))
+        params["embed"], torch.tensor(float("inf"), device=dev)))
     ulp, _ = prefill(moved, tokens)
     del moved
     handoff = (step - whole).abs().max().item()
     ulp_change = (ulp - whole).abs().max().item()
-    emit({"phase": "xlstm_handoff", "S": S,
+    emit({"phase": phase, "S": S,
           "handoff_max_abs_logit_diff": handoff,
           "one_ulp_embedding_max_abs_logit_change": ulp_change,
           "logit_std": whole.std().item()})
@@ -4225,6 +4535,7 @@ def main() -> int:
     del flush
     small_parity_phase(torch)
     xlstm_parity_phase(torch)
+    hybrid_parity_phase(torch)
     train_parity_phase(torch)
     moe_train_parity_phase(torch)
     counts = serving_phase(torch, "granite-8b", "serving")
@@ -4235,6 +4546,8 @@ def main() -> int:
     moe_counts = serving_phase(torch, "qwen2-moe-a2.7b", "serving_moe")
     release(torch, "serving_xlstm")
     xlstm_counts = serving_xlstm_phase(torch)
+    release(torch, "serving_hybrid")
+    serving_hybrid_phase(torch)
     release(torch, "training")
     train_counts, _ = training_phase(torch)
     release(torch, "moe_training")

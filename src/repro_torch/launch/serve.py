@@ -4,7 +4,9 @@
         --batch 4 --prompt-len 64 --gen 32
 
 ``--arch`` takes any ported config: the dense ones (granite-8b, ...), the
-MoE ones (qwen2-moe-a2.7b, dbrx-132b) and xlstm-1.3b.
+MoE ones (qwen2-moe-a2.7b, dbrx-132b), xlstm-1.3b and hymba-1.5b (its
+k/v a ring buffer of the 2048-token window once prompt and continuation
+reach it).
 
 Runs on the card (``--device cuda``, the default) with the full config;
 ``--reduced`` serves the smoke-test width instead, and ``--device cpu``

@@ -8,6 +8,15 @@ the additive ``-1e9`` mask, and streaming (flash) attention from
 under autograd, through the flash backward).  float64 inputs stay float64
 throughout, so a float64 run is a reference for the float32 one.
 
+A cache of exactly ``cfg.window`` tokens under a sliding window is a ring
+buffer, as in JAX: position ``p`` lives in slot ``p % window``, a block
+of ``S >= window`` tokens keeps its last ``window``, and the mask reads
+each slot's position from :func:`_ring_pos`.  JAX's masks are kept as they
+are, the reference's hazard included: a block of ``window <= S <
+FLASH_MIN_SEQ`` tokens attends over the ring alone, so each of its
+queries but the last sees only the keys still in the ring, and a query
+older than all of them averages the ring (its every score is ``-1e9``).
+
 Difference from the JAX package: a KV cache passed to
 :func:`run_attention` is updated in place (JAX returns a new array), which
 saves a copy of the cache per step; ``cache_len`` is a host ``int``.
@@ -167,13 +176,22 @@ def run_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if kv_cache is not None:
         ck, cv = kv_cache                                  # (B,T,Hk,hd)
         T = ck.shape[1]
+        dev = x.device
         if cfg.window > 0 and T == cfg.window:
-            raise NotImplementedError(
-                "the windowed ring-buffer cache is not ported yet")
-        if cache_len + S > T:
-            raise ValueError(f"cache of {T} cannot take {cache_len}+{S} tokens")
-        ck[:, cache_len:cache_len + S] = k
-        cv[:, cache_len:cache_len + S] = v
+            # ring buffer: the scatter wraps; a block longer than the ring
+            # keeps its last T tokens
+            n = min(S, T)
+            idx = (cache_len + S - n + torch.arange(n, device=dev)) % T
+            ck[:, idx] = k[:, S - n:]
+            cv[:, idx] = v[:, S - n:]
+            kpos = _ring_pos(torch.arange(T, device=dev), cache_len + S, T)
+        else:
+            if cache_len + S > T:
+                raise ValueError(
+                    f"cache of {T} cannot take {cache_len}+{S} tokens")
+            ck[:, cache_len:cache_len + S] = k
+            cv[:, cache_len:cache_len + S] = v
+            kpos = torch.arange(T, device=dev)
         new_cache = (ck, cv)
         if S > 1 and S >= FLASH_MIN_SEQ:
             # initial prefill: stream the NEW block's k/v flash-style
@@ -189,8 +207,7 @@ def run_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
             vv = _repeat_kv(v, H // Hk)
             out = ops.flash_attention(q, kk, vv, causal=True, window=cfg.window)
         else:
-            kpos = torch.arange(T, device=x.device)
-            qpos = cache_len + torch.arange(S, device=x.device)
+            qpos = cache_len + torch.arange(S, device=dev)
             ok = (kpos[None, :] >= 0) & (kpos[None, :] <= qpos[:, None])
             if cfg.window > 0:
                 ok &= kpos[None, :] > (qpos[:, None] - cfg.window)
@@ -209,6 +226,16 @@ def run_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
             out = attention_scores(q, kk, vv, mask)
     y = out.reshape(B, S, H * hd) @ p["wo"]
     return y, new_cache
+
+
+def _ring_pos(slot: torch.Tensor, length: int, T: int) -> torch.Tensor:
+    """Absolute position stored in ring slot ``slot`` when ``length``
+    tokens have been written into a ring of size T (negative: never
+    written)."""
+    # the last written slot is (length-1) % T, holding position length-1
+    last_slot = (length - 1) % T
+    delta = (last_slot - slot) % T
+    return (length - 1) - delta
 
 
 # ------------------------------------------------------------------------- MLP

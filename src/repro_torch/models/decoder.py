@@ -1,4 +1,5 @@
-"""Decoder-only model: the dense, MoE and xLSTM (ssm) architectures.
+"""Decoder-only model: the dense, MoE, xLSTM (ssm) and hybrid
+architectures.
 
 Parameters are a dict of tensors in the JAX package's tree layout, so the
 weight bridge (:mod:`repro_torch.params`) is a copy: dense and MoE blocks
@@ -14,11 +15,16 @@ tree (layer ``l`` runs its sLSTM when ``l % slstm_every == slstm_every -
 
 An MoE block replaces the MLP with :func:`.moe.run_moe`, without token
 drops when it runs against a cache (prefill and decode), and its
-load-balance loss is summed over the layers.  Other architectures
-(hybrid, vlm, audio) are later slices of the port and raise
-``NotImplementedError``.  KV caches are updated in place (see
-:mod:`.common`); an xLSTM cache is, as in JAX, a list of per-layer state
-dicts that each call replaces.
+load-balance loss is summed over the layers.  A hybrid block (hymba) runs
+attention and :func:`.ssm.run_mamba` on the same normed input and adds
+their mean, ``0.5 * (attn + ssm)``, before the MLP; its cache holds the
+Mamba state ``h`` (L,B,d_in,N) and ``conv`` (L,B,CONV_K-1,d_in) beside
+k/v, which are a ring buffer of ``cfg.window`` tokens once the cache is
+that long.  Other architectures (vlm, audio) are later slices of the
+port and raise ``NotImplementedError``.  KV caches are updated in place
+(see :mod:`.common`), and so is the Mamba state of a layer-stacked cache;
+an xLSTM cache is, as in JAX, a list of per-layer state dicts that each
+call replaces.
 """
 
 from __future__ import annotations
@@ -33,10 +39,11 @@ from .common import (Params, dense_init, init_attention, init_mlp, rms_norm,
                      run_attention, run_mlp)
 from .config import ModelConfig
 from .moe import init_moe, run_moe, switch_aux
-from .ssm import init_mlstm, init_slstm, run_mlstm, run_slstm
+from .ssm import (CONV_K, init_mamba, init_mlstm, init_slstm, run_mamba,
+                  run_mlstm, run_slstm)
 
 #: architectures this module implements so far
-PORTED_ARCHS = ("dense", "moe", "ssm")
+PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -100,6 +107,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     else:
         params["blocks"]["mlp"] = init_mlp(generator, D, cfg.d_ff, dev,
                                            dtype, L)
+    if cfg.arch == "hybrid":
+        params["blocks"]["mamba"] = init_mamba(cfg, generator, dev, dtype, L)
     return params
 
 
@@ -159,6 +168,10 @@ def run_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     kv = (cache["k"], cache["v"]) if cache is not None else None
     attn_out, new_kv = run_attention(p["attn"], cfg, h, positions, kv, cache_len)
+    if cfg.arch == "hybrid":
+        mstate = (cache["h"], cache["conv"]) if cache is not None else None
+        ssm_out, new_mstate = run_mamba(p["mamba"], cfg, h, mstate)
+        attn_out = 0.5 * (attn_out + ssm_out)
     x = x + attn_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.arch == "moe":
@@ -171,6 +184,8 @@ def run_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     new_cache = None
     if cache is not None:
         new_cache = {"k": new_kv[0], "v": new_kv[1]}
+        if cfg.arch == "hybrid":
+            new_cache["h"], new_cache["conv"] = new_mstate
     return x, new_cache, aux
 
 
@@ -243,7 +258,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32,
                device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Dense cache: per-layer k/v stacked as (L, B, T, Hk, hd) and a host
-    ``int`` length.  xLSTM cache: a list of per-layer dicts, each with the
+    ``int`` length, with T = ``max_len``, or ``min(max_len, cfg.window)``
+    under a sliding window (a ring buffer when T == window).  Hybrid
+    cache: also the Mamba state h (L, B, d_in, N) in float32 (float64
+    for a float64 ``dtype``) and conv (L, B, CONV_K-1, d_in), all zero.
+    xLSTM cache: a list of per-layer dicts, each with the
     mLSTM state C (B,H,hd,hd), n (B,H,hd), m (B,H) = 0 and the sLSTM
     state sc, sn = 1e-6, sh, sm (B,H,d/H), in every layer and in float32
     whatever ``dtype``, as in JAX (``max_len`` sizes nothing)."""
@@ -255,9 +274,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     L, Hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     kv_len = min(max_len, cfg.window) if cfg.window else max_len
     shape = (L, batch, kv_len, Hk, hd)
-    return {"len": 0,
-            "layers": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    layers = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+              "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if cfg.arch == "hybrid":
+        layers["h"] = torch.zeros(
+            (L, batch, cfg.d_in, cfg.ssm_state), device=dev,
+            dtype=torch.promote_types(dtype, torch.float32))
+        layers["conv"] = torch.zeros((L, batch, CONV_K - 1, cfg.d_in),
+                                     dtype=dtype, device=dev)
+    return {"len": 0, "layers": layers}
 
 
 def _ssm_layer_cache(cfg: ModelConfig, batch: int,
@@ -293,9 +318,12 @@ def apply_layers_cached(blocks: Params, cfg: ModelConfig, x: torch.Tensor,
         return x, {"len": cache_len + x.shape[1], "layers": new_layers}
     n_layers = layers["k"].shape[0]
     for j in range(n_layers):
-        lc = {"k": layers["k"][j], "v": layers["v"][j]}
-        x, _, _ = run_block(cfg, layer_params(blocks, j), x, positions, lc,
-                            cache_len, layer_idx=layer_offset + j)
+        lc = {key: t[j] for key, t in layers.items()}
+        x, nc, _ = run_block(cfg, layer_params(blocks, j), x, positions, lc,
+                             cache_len, layer_idx=layer_offset + j)
+        if cfg.arch == "hybrid":          # k/v were written in place
+            layers["h"][j].copy_(nc["h"])
+            layers["conv"][j].copy_(nc["conv"])
     return x, {"len": cache_len + x.shape[1], "layers": layers}
 
 

@@ -1,8 +1,18 @@
-"""Recurrent sequence layers of xLSTM: mLSTM and sLSTM.
+"""Recurrent sequence layers: Mamba (hymba's parallel SSM branch), and
+the mLSTM and sLSTM of xLSTM.
 
 Plain functions over parameter dicts with the JAX package's keys, shapes,
-scales and ``(in, out)`` layout, so the weight bridge is a copy.  The mLSTM
-keeps the three branches of the JAX package's ``run_mlstm``:
+scales and ``(in, out)`` layout, so the weight bridge is a copy.
+
+Mamba keeps the three forms of the JAX package's ``run_mamba``: the O(1)
+decode step (``S == 1`` with a state); the chunkwise prefill over chunks
+of ``MAMBA_CHUNK`` tokens, carrying ``h`` from chunk to chunk, when ``S``
+is a multiple of it; one chunk of ``S`` tokens otherwise.  Within a chunk
+the recurrence ``h_t = dA_t h_{t-1} + dBu_t`` is a log-depth doubling
+scan over the sequence axis (:func:`mamba_scan`), where JAX runs
+``lax.associative_scan``: the same products, added in another order.
+
+The mLSTM keeps the three branches of the JAX package's ``run_mlstm``:
 
   * decode (``S == 1`` with a state): the O(1) recurrence;
   * no state and ``S <= 256``: the stabilised quadratic D-matrix form;
@@ -32,6 +42,10 @@ from .config import ModelConfig
 Params = Dict[str, Any]
 State = Tuple[torch.Tensor, ...]
 
+#: Mamba's low-rank dt projection, depthwise conv taps and scan chunk
+DT_RANK = 16
+CONV_K = 4
+MAMBA_CHUNK = 128
 #: the JAX package's mLSTM chunk (``MLSTM_CHUNK``): the quadratic form
 #: serves state-free sequences up to this length
 MLSTM_CHUNK = 256
@@ -42,6 +56,118 @@ GATES = ("z", "i", "f", "o")
 def _f32(t: torch.Tensor) -> torch.Tensor:
     """float32, or float64 kept as it is (the JAX package's upcasts)."""
     return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+# =====================================================================
+# Mamba-style selective SSM (hymba's parallel SSM branch)
+# =====================================================================
+
+def init_mamba(cfg: ModelConfig, generator: torch.Generator,
+               device: torch.device, dtype: torch.dtype,
+               n_layers: int) -> Params:
+    """Mamba weights stacked on a leading layer axis.  ``A_log`` and
+    ``D_skip`` are float32 whatever ``dtype``, as in JAX."""
+    L, D, d_in, N = n_layers, cfg.d_model, cfg.d_in, cfg.ssm_state
+    g, dev = generator, device
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=dev)
+    return {
+        "w_in": dense_init(g, (L, D, 2 * d_in), dev, dtype, fan_in=D),
+        "conv_w": dense_init(g, (L, CONV_K, d_in), dev, dtype, scale=0.5),
+        "w_bc": dense_init(g, (L, d_in, 2 * N), dev, dtype, fan_in=d_in),
+        "w_dt1": dense_init(g, (L, d_in, DT_RANK), dev, dtype, fan_in=d_in),
+        "w_dt2": dense_init(g, (L, DT_RANK, d_in), dev, dtype,
+                            fan_in=DT_RANK),
+        "dt_bias": torch.zeros((L, d_in), device=dev, dtype=dtype),
+        "A_log": torch.log(A).expand(L, d_in, N).contiguous(),
+        "D_skip": torch.ones((L, d_in), device=dev),
+        "w_out": dense_init(g, (L, d_in, D), dev, dtype, fan_in=d_in),
+    }
+
+
+def _causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor,
+                           tail: Optional[torch.Tensor] = None,
+                           ) -> torch.Tensor:
+    """u: (B,S,C), w: (K,C).  ``tail``: (B,K-1,C) of preceding context."""
+    B, S, C = u.shape
+    K = w.shape[0]
+    if tail is None:
+        tail = u.new_zeros((B, K - 1, C))
+    up = torch.cat([tail.to(u.dtype), u], dim=1)
+    out = torch.zeros_like(u)
+    for i in range(K):
+        out = out + up[:, i:i + S, :] * w[i]
+    return out
+
+
+def mamba_scan(dA: torch.Tensor, dBu: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """All h_t of h_t = dA_t * h_{t-1} + dBu_t along axis 1 (h_{-1} =
+    ``h0``, or 0).  dA, dBu: (B, W, d_in, N).
+
+    A doubling scan: after the pass with offset s, position t holds the
+    composition of the s' <= 2s steps ending at t, (a, b) = (a_t a_{t-s},
+    a_t b_{t-s} + b_t); ceil(log2 W) passes."""
+    if h0 is not None:
+        dBu = torch.cat([dBu[:, :1] + dA[:, :1] * h0[:, None], dBu[:, 1:]],
+                        dim=1)
+    a, b = dA, dBu
+    W, s = a.shape[1], 1
+    while s < W:
+        b = torch.cat([b[:, :s], a[:, s:] * b[:, :-s] + b[:, s:]], dim=1)
+        if 2 * s < W:
+            a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
+        s *= 2
+    return b
+
+
+def run_mamba(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              state: Optional[State] = None,
+              ) -> Tuple[torch.Tensor, Optional[State]]:
+    """x: (B,S,D).  state = (h (B,d_in,N), conv_tail (B,K-1,d_in)) for
+    decode.  Returns (y (B,S,D), the new state, or None without a
+    state)."""
+    B, S, _ = x.shape
+    d_in, N = cfg.d_in, cfg.ssm_state
+    u, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
+    conv_tail = state[1] if state is not None else None
+    u_conv = _causal_depthwise_conv(u, p["conv_w"], conv_tail)
+    prev = (conv_tail.to(u.dtype) if conv_tail is not None
+            else u.new_zeros((B, CONV_K - 1, d_in)))
+    new_tail = torch.cat([prev, u], dim=1)[:, -(CONV_K - 1):, :]
+    u = F.silu(u_conv)
+
+    dt = _f32(F.softplus((u @ p["w_dt1"]) @ p["w_dt2"] + p["dt_bias"]))
+    B_, C_ = torch.chunk(_f32(u @ p["w_bc"]), 2, dim=-1)      # (B,S,N)
+    A = -torch.exp(p["A_log"])                                # (d_in,N)
+    uf = _f32(u)
+    h0 = state[0] if state is not None else None
+
+    if S == 1 and state is not None:
+        dA = torch.exp(dt[:, 0, :, None] * A)                 # O(1) decode
+        dBu = (dt[:, 0] * uf[:, 0])[..., None] * B_[:, 0, None, :]
+        h_last = dA * h0.to(dA.dtype) + dBu
+        y = torch.einsum("bdn,bn->bd", h_last, C_[:, 0])[:, None]
+    else:
+        # chunkwise: (dA, dBu) and h live one chunk at a time
+        W = MAMBA_CHUNK if S % MAMBA_CHUNK == 0 else S
+        h_last = (h0.to(dt.dtype) if h0 is not None
+                  else dt.new_zeros((B, d_in, N)))
+        ys = []
+        for c0 in range(0, S, W):
+            sl = slice(c0, c0 + W)
+            dA = torch.exp(dt[:, sl, :, None] * A)            # (B,W,d,N)
+            dBu = ((dt[:, sl] * uf[:, sl])[..., None]
+                   * B_[:, sl, None, :])
+            h = mamba_scan(dA, dBu, h_last)
+            del dA, dBu
+            ys.append(torch.einsum("bsdn,bsn->bsd", h, C_[:, sl]))
+            h_last = h[:, -1].clone()     # not a view that keeps h alive
+            del h
+        y = torch.cat(ys, dim=1)
+    y = y + p["D_skip"] * uf
+    y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    new_state = (h_last, new_tail) if state is not None else None
+    return y, new_state
 
 
 # =====================================================================

@@ -3,8 +3,9 @@
 The JAX package's tree, flattened to numpy (nested dicts of arrays, with
 non-ssm ``blocks`` stacked on a leading layer axis), has exactly the
 port's keys, shapes and ``(in, out)`` layout, so crossing over is a copy.
-Values are bit-exact both ways.  bfloat16 arrays (``ml_dtypes``) cross
-as their raw 16-bit patterns.  A train state (parameters, AdamW moments
+Values are bit-exact both ways, and each leaf keeps its dtype (a bfloat16
+hymba tree keeps its float32 Mamba ``A_log`` and ``D_skip``).  bfloat16
+arrays (``ml_dtypes``) cross as their raw 16-bit patterns.  A train state (parameters, AdamW moments
 and step) crosses the same way.
 """
 

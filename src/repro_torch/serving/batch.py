@@ -26,10 +26,12 @@ Two decode paths share the slot table:
   scales, dequantized in the attention kernel); the partial page keeps an
   fp32 staging tail per slot, and appends requantize it on the device.
 
-* **Per-slot path** (``fused=False``, and always for the xLSTM arch, as
-  in the JAX engine): one batch-1 ``module.apply`` per session per token
-  over a dense cache grown by whole pages.  An xLSTM cache is recurrent
-  state of a fixed size: growth only counts its pages.
+* **Per-slot path** (``fused=False``, and always for the xLSTM arch and
+  for a sliding window, hymba's, as in the JAX engine): one batch-1
+  ``module.apply`` per session per token over a dense cache grown by whole
+  pages.  Recurrent state (xLSTM's, hymba's Mamba ``h`` and ``conv``) has
+  a fixed size, and hymba's k/v stop growing at the window: there growth
+  only counts pages.
 
 Order of work, which ``chip_smoke.py`` relies on to pair two runs' MoE
 gating calls: ``open`` prefills its prompt through every layer in turn; a
@@ -58,7 +60,7 @@ from ..core.simnet import Sim
 from ..kernels.ops import paged_decode_attention
 from ..models.common import apply_rope, rms_norm, run_mlp
 from ..models.moe import run_moe
-from ..tree import leaves
+from ..tree import leaves, unflatten
 
 __all__ = ["BatchEngine", "KVPool", "SlotState", "PEER_FLOPS", "PEER_BW"]
 
@@ -301,21 +303,40 @@ class BatchEngine:
 
     def _ensure_capacity(self, st: SlotState, need: int) -> None:
         """Grow the slot's cache by whole pages until it can hold ``need``
-        tokens.  A dense cache is reallocated and copied; an xLSTM cache
-        (a list of per-layer states of a fixed size) is kept as it is, as
-        the JAX engine's merge keeps every leaf whose shape does not grow,
-        and only its page count grows."""
+        tokens, as the JAX engine's merge does: each leaf of a fresh cache
+        of the new capacity whose shape differs from the old leaf's along
+        its one capacity axis takes the old leaf's contents at its front;
+        a leaf whose shape does not grow is kept as it is.  So recurrent
+        state (the xLSTM cells, the Mamba ``h`` and ``conv``) is kept, and
+        a windowed cache's k/v stop growing at the window; the page count
+        grows all the same.  An xLSTM cache, a list of per-layer states
+        none of which depends on the capacity, is kept without building a
+        fresh cache."""
         if need <= st.capacity:
             return
         new_cap = self._pages_for(need) * self.page_size
-        if isinstance(st.cache["layers"], dict):
-            fresh = self.module.init_cache(1, new_cap)
-            for name, old in st.cache["layers"].items():
-                fresh["layers"][name][:, :, :old.shape[2]] = old
-            st.cache = {"len": st.cache["len"], "layers": fresh["layers"]}
         self._fallback_pages += (new_cap - st.capacity) // self.page_size
         st.capacity = new_cap
         self._note_pages()
+        if not isinstance(st.cache["layers"], dict):
+            return
+        fresh = self.module.init_cache(1, new_cap)
+
+        def merge(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+            if old.shape == new.shape:
+                return old
+            diff = [d for d in range(old.dim()) if old.shape[d] != new.shape[d]]
+            if len(diff) != 1:
+                raise ValueError(f"cache leaf {tuple(old.shape)} cannot grow "
+                                 f"to {tuple(new.shape)}")
+            new.narrow(diff[0], 0, old.shape[diff[0]]).copy_(old)
+            return new
+
+        layers = [merge(a, b) for a, b in zip(leaves(st.cache["layers"]),
+                                              leaves(fresh["layers"]))]
+        del fresh
+        st.cache = {"len": st.cache["len"],
+                    "layers": unflatten(st.cache["layers"], layers)}
 
     def _pages_in_use(self) -> int:
         if self.fused:

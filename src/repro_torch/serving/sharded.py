@@ -127,9 +127,13 @@ class ShardModule:
         return x @ w
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        """A decode cache for this shard's layers only."""
+        """A decode cache for this shard's layers only: float32, or float64
+        for float64 parameters (a CPU reference run)."""
         layer_cfg = dataclasses.replace(self.cfg, n_layers=self.n_layers)
-        return decoder.init_cache(layer_cfg, batch, max_len, device=self.device)
+        dtype = torch.promote_types(leaves(self.params)[0].dtype,
+                                    torch.float32)
+        return decoder.init_cache(layer_cfg, batch, max_len, dtype,
+                                  device=self.device)
 
     def apply(self, x: torch.Tensor, positions: torch.Tensor,
               cache: Optional[Dict[str, Any]],

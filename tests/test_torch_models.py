@@ -115,6 +115,6 @@ def test_cached_flash_prefill_refuses_a_nonempty_cache(model):
 
 def test_other_archs_are_not_ported_yet():
     gen = torch.Generator().manual_seed(0)
-    for arch in ("hymba-1.5b", "whisper-small", "qwen2-vl-7b"):
+    for arch in ("whisper-small", "qwen2-vl-7b"):
         with pytest.raises(NotImplementedError):
             decoder.init_params(get_config(arch).reduced(), gen, "cpu")
