@@ -31,12 +31,16 @@ Phases, each printed as one JSON object per line:
    ragged 97 with B=2; window 1; the serving layout's repeated k/v; q x 8;
    at minicpm-2b's hd=64, H=36: causal, ragged 2050, window 128, and q x 8
    in fp32 only; gate K-hy, hymba-1.5b's H=25, hd=64 under its 2048
-   window at S=4096 and at a ragged 3000),
+   window at S=4096 and at a ragged 3000; gate K-vl, qwen2-vl-7b's H=28,
+   hd=128 causal at S=2304 and a ragged 2050; gate K-wh, whisper-small's
+   B=4, H=12, hd=64 causal at S=2048),
    fp32 and bf16, against ``flash_attention_plain``, each output equal to
    the bit with and without the lse output; timed at granite-8b's (H=32)
    and qwen2-moe-a2.7b's (H=16) causal prefill of 2048 tokens, at
    minicpm-2b's (H=36, hd=64) and at hymba-1.5b's windowed prefill of
-   4096 tokens, with ``scaled_dot_product_attention`` (causal, or a
+   4096 tokens, at qwen2-vl-7b's prefill of 256 patches and 2048 text
+   tokens (and the ragged 2050) and at whisper-small's decoder prompt of
+   2048 tokens at B=4, with ``scaled_dot_product_attention`` (causal, or a
    boolean window mask) beside it as a yardstick only, and the kernel's
    ptxas registers, spills and shared memory;
    flash_backward — the backward kernel under gate T1 over
@@ -76,7 +80,8 @@ Phases, each printed as one JSON object per line:
    its 60 experts, top-4, each with fp32 (1e-4) and int8 (1e-2) pools,
    served on the card and on the CPU (plain versions) with the same
    weights: logits must agree and only the card's run launches the
-   kernels; then hybrid_parity, gate Y1; then train_parity, gate T2; then
+   kernels; then hybrid_parity, gate Y1; then vlm_parity, gate V1; then
+   audio_parity, gate A1; then train_parity, gate T2; then
    moe_train_parity, gate T2m;
 7. serving  — granite-8b at full width and full depth in fp32 with
    seeded random weights: a ``BatchEngine`` admits 8
@@ -102,7 +107,16 @@ Phases, each printed as one JSON object per line:
    and depth in fp32 (1,644,856,000 parameters; window 2048 on every
    layer) served per slot under gate Y2, ``launch.serve.main`` once on
    the card, gate Y3's handoff, and a profile of a few steps;
-10. training — hymba-1.5b released, then minicpm-2b at full width and
+   serving_vlm — hymba-1.5b released, then qwen2-vl-7b at full width and
+   depth in fp32 (7,615,487,488 parameters in the tree) through
+   ``GenerationEngine`` with 256 stubbed patch embeddings and through
+   ``BatchEngine`` per slot, under gate V2, gate V3's handoff, a profile
+   of 2 steps of each engine, and ``launch.serve.main`` once;
+   serving_audio — qwen2-vl-7b released, then whisper-small at full width
+   and depth in fp32 (335,106,048 parameters, enc_seq 1500) through
+   ``GenerationEngine``, under gate A2, gate A3's handoff, a profile of 2
+   decode steps, and ``launch.serve.main`` once;
+10. training — whisper-small released, then minicpm-2b at full width and
    depth in fp32 (2.72 B parameters, AdamW) trained 4 steps at B=1,
    S=2048 through ``repro_torch.launch.train.main``, every layer's
    attention through the flash forward and backward kernels, under gate
@@ -223,6 +237,71 @@ this script's first run of them:
   logits(4096)| is no larger than what one ulp of the input embeddings
   moves prefill(4096)'s logits in the same run.
 * Y4: every earlier gate passes as written, and the last line is the
+  contract's.
+
+The vlm and audio paths' bounds (qwen2-vl-7b: M-RoPE, 256 stubbed patch
+embeddings, served through ``GenerationEngine`` and text per slot;
+whisper-small: ``models/encdec.py``, served through ``GenerationEngine``),
+fixed before this script's first run of them:
+
+* K-vl, K-wh, the flash kernel at the new shapes: ``FLASH_CASES`` rows
+  ``qwen2vl_2304`` (B=1, H=28, S=2304, hd=128, causal), ``qwen2vl_2050``
+  (S=2050) and ``whisper_2048`` (B=4, H=12, S=2048, hd=64, causal) under
+  the flash bounds as written: 1e-4 in fp32, 2e-2 in bf16, the output
+  equal to the bit with and without the lse output.  Each row timed
+  beside its bound (TF32 peak: 0.0769 ms, 0.0609 ms, 0.0521 ms) and SDPA.
+* V1, a reduced qwen2-vl-7b (``VLM_REDUCED``: L=4, d=256, H=4, Hk=1,
+  hd=64, sections (8, 12, 12), 16 patches, vocab 512) on one init, on
+  the card in fp32 and on the CPU in fp32 and float64 fed the card's
+  greedy tokens: ``GenerationEngine`` at B=2 over 16 patch embeddings and
+  grid positions (patch i at (0, i // 4, i % 4), the text from max + 1
+  on all three streams) before 2032 and 100 text tokens (totals 2048 and
+  116), and ``BatchEngine`` per slot over the text prompts 2048, 2100,
+  12, 37, 100, 300; 16 steps each.  Over every prefill's and step's
+  logits: max|card32 - cpu64| <= max(1e-4, 2 max|cpu32 - cpu64|).
+  ``flash_attention`` launches exactly 4 x 3 times on the card (the
+  prefills of >= 2048 tokens), nothing else; the CPU runs launch nothing.
+* V2, qwen2-vl-7b at full width and depth, fp32: the tree holds
+  ``param_count()`` + 2 L d = 7,615,487,488 parameters;
+  ``GenerationEngine`` at B=2, 256 patches and grid positions + 2048 text
+  tokens, 16 greedy steps; ``BatchEngine`` per slot, 4 sessions, page 32,
+  prompts 2048, 2047, 100, 12, 16 greedy steps: finite logits of the
+  vocab's width; ``flash_attention`` launched exactly 28 x 1 in each
+  route, nothing else; 0 pages after close; each session's cache exactly
+  114,688 B a token of its capacity.  ``launch.serve.main(["--arch",
+  "qwen2-vl-7b", "--prompt-len", "2048", "--gen", "8", "--batch", "1"])``
+  on the card, the model freed first, ends with 8 tokens in the vocab.
+* V3, the handoff on V2's model in G3/Y3's form, 256 patches before the
+  first slot prompt with broadcast positions (so that decode's
+  cache-length position is the same position): fed each layer the same
+  fp32 input, prefill(2303) + one decode step against prefill(2304)
+  leaves k and v within 1e-4 of their largest entry; |logits(2303 + 1) -
+  logits(2304)| is no larger than what one ulp of the input embeddings
+  (the token embeddings and the patch embeddings) moves prefill(2304)'s
+  logits in the same run.
+* A1, a reduced whisper-small (L=2, enc_layers 2, enc_seq 64, d=256,
+  H=Hk=4, hd=64, vocab 512) through ``GenerationEngine`` at B=2, prompts
+  2048 and 37, 16 steps each, card fp32 against CPU fp32 and float64 on
+  one init and the card's tokens: V1's bound; ``flash_attention``
+  launches exactly 2 x 1 times on the card, nothing else, none on the
+  CPU.
+* A2, whisper-small at full width and depth, fp32 (enc_seq 1500):
+  ``GenerationEngine`` at B=4, prompts 448 and 2048, 32 greedy steps
+  each: finite logits; ``flash_attention`` launched exactly 12 times for
+  the 2048 prompt and never for 448, nothing else; the encoder run once
+  per generation; the cross K/V 110,592,000 B a session (12 x 2 x 1500 x
+  12 x 64 x 4), ``torch.equal`` after the last step to what the prefill
+  wrote.  ``launch.serve.main(["--arch", "whisper-small", "--prompt-len",
+  "448", "--gen", "8", "--batch", "1"])`` ends with 8 tokens in the vocab.
+* A3, the handoff on A2's model at 447 + 1 against 448 (B=1): fed each
+  decoder layer the same fp32 input, k and v within 1e-4 of their
+  largest entry; end to end, with a float64 copy of the weights on the
+  card, the two routes in float64 within 1e-10 of the largest float64
+  logit, and the handoff route's fp32 error at most twice the prefill's
+  plus 1e-6 of that logit (G1's form).  V3's one-ulp ratio is printed,
+  not held: on the CPU at full width it read 1.03-1.5 over 4 seeds (the
+  token and frame embeddings moved), so that form fails a correct port.
+* V4/A4: every earlier gate passes as written, and the last line is the
   contract's.
 
 The training path's bounds, fixed before this script's first run of them:
@@ -490,6 +569,32 @@ HYBRID_SMALL_STEPS = 32
 #: hymba-1.5b's cache of one session at the window: per layer k and v
 #: (2048, 5, 64), the Mamba h (3200, 16) and conv (3, 3200), in fp32
 HYBRID_STATE_BYTES = 175_554_560
+#: gate V1: a reduced qwen2-vl-7b (d=256, H=4, Hk=1, hd=64, sections (8,
+#: 12, 12), 16 patches, vocab 512) at L=4; ``GenerationEngine`` over 16
+#: patches and these text lengths (totals 2048 and 116), ``BatchEngine``
+#: per slot over the text prompts
+VLM_REDUCED = {"n_layers": 4}
+VLM_SMALL_TEXT = [2032, 100]
+VLM_SMALL_PROMPTS = [2048, 2100, 12, 37, 100, 300]
+VLM_SMALL_STEPS = 16
+#: gate V2: qwen2-vl-7b at full width, 256 patches + 2048 text tokens
+#: through ``GenerationEngine`` at B=2, these text prompts per slot
+VLM_TEXT = 2048
+VLM_PROMPTS = [2048, 2047, 100, 12]
+VLM_STEPS = 16
+#: qwen2-vl-7b's k/v per token of a session: 28 x 2 x 4 x 128 x 4 B
+VLM_KV_BYTES_PER_TOKEN = 114_688
+#: gate A1: a reduced whisper-small (L=2, enc_layers 2, enc_seq 64,
+#: d=256, H=Hk=4, hd=64, vocab 512), B=2 at each prompt length
+AUDIO_SMALL_PROMPTS = [2048, 37]
+AUDIO_SMALL_STEPS = 16
+#: gate A2: whisper-small at full width, B=4 at each prompt length: 448
+#: (Whisper's own decoder limit) and 2048 (the flash branch)
+AUDIO_PROMPTS = [448, 2048]
+AUDIO_BATCH = 4
+AUDIO_STEPS = 32
+#: whisper-small's cross K/V per session: 12 x 2 x 1500 x 12 x 64 x 4 B
+AUDIO_CROSS_BYTES = 110_592_000
 GATING_T = (1, 8, 2048, 2050)
 GATING_EK = ((60, 4), (16, 4), (64, 8))
 #: two runs of one feed may route a token differently only where its K-th
@@ -805,7 +910,10 @@ FLASH_CASES = [("causal", 1, 32, 2048, 2048, True, 0, "bshd", 128),
                ("minicpm_window128", 1, 36, 2048, 2048, True, 128, "bshd", 64),
                ("minicpm_large", 1, 36, 2048, 2048, True, 0, "large", 64),
                ("hymba_window2048", 1, 25, 4096, 4096, True, 2048, "bshd", 64),
-               ("hymba_ragged3000", 1, 25, 3000, 3000, True, 2048, "bshd", 64)]
+               ("hymba_ragged3000", 1, 25, 3000, 3000, True, 2048, "bshd", 64),
+               ("qwen2vl_2304", 1, 28, 2304, 2304, True, 0, "bshd", 128),
+               ("qwen2vl_2050", 1, 28, 2050, 2050, True, 0, "bshd", 128),
+               ("whisper_2048", 4, 12, 2048, 2048, True, 0, "bshd", 64)]
 #: rows checked in fp32 only: q x 8 at hd=64 makes near one-hot rows whose
 #: outputs reach 4-8 in magnitude, where one bf16 ulp is 0.03125, past the
 #: 2e-2 bf16 bound (an H100 run read exactly that); the trained path is
@@ -905,6 +1013,11 @@ def flash_phase(torch, flush, build_log: str):
     # hymba-1.5b's prefill of 4096 tokens: H=25, hd=64, window 2048
     res["hymba_H25_hd64_S4096_window2048"] = timed(B, 25, 4096, hd=64,
                                                    window=2048)
+    # qwen2-vl-7b's prefill of 256 patches + 2048 text tokens (and a
+    # ragged 2050), whisper-small's decoder prompt of 2048 tokens at B=4
+    res["qwen2vl_H28_S2304"] = timed(1, 28, 2304)
+    res["qwen2vl_H28_S2050"] = timed(1, 28, 2050)
+    res["whisper_B4_H12_hd64_S2048"] = timed(4, 12, 2048, hd=64)
     lib = build.load("flash_attention", fa._SIGNATURES)
     smem = lib.repro_flash_attention_smem_bytes
     smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int]
@@ -1800,9 +1913,11 @@ def small_parity_phase(torch):
                                for k, r in ties.items()}})
 
 
-def served_three_ways(torch, cfg, seed, prompts, steps, device="cuda"):
+def served_three_ways(torch, cfg, seed, prompts, steps, device="cuda",
+                      params=None):
     """Serve a reduced ``cfg`` per slot through ``BatchEngine`` three
-    times on one seeded init: on ``device`` in float32 (the "card32" run),
+    times on one seeded init (or on ``params``, on ``device``): on
+    ``device`` in float32 (the "card32" run),
     then on the CPU in float32 and in float64, both fed the card32 run's
     greedy tokens.  Returns each run's ``_drive`` tuple and launch counts,
     and the per-call max|card32 - cpu64| and max|cpu32 - cpu64| (each
@@ -1816,8 +1931,9 @@ def served_three_ways(torch, cfg, seed, prompts, steps, device="cuda"):
     from repro_torch.serving import BatchEngine, ShardModule
 
     L = cfg.n_layers
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = decoder.init_params(cfg, gen, device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = decoder.init_params(cfg, gen, device)
     tree = params_to_numpy(params)
     runs = {"card32": params,
             "cpu32": params_from_numpy(tree, "cpu"),
@@ -2404,7 +2520,7 @@ def serving_xlstm_phase(torch):
 
     tokens = torch.from_numpy(prompts[0]).cuda()          # the 2048 prompt
     handoff_by_layer(torch, cfg, params, tokens)
-    handoff_end_to_end(torch, cfg, params, tokens)
+    handoff_end_to_end(torch, cfg, params, {"tokens": tokens})
     profile_decode(torch, module, prompts, feed)
     return counts
 
@@ -2512,7 +2628,8 @@ def serving_hybrid_phase(torch, device="cuda", cfg=None,
     tokens = torch.from_numpy(prompts[0]).to(device)
     t0 = time.perf_counter()
     handoff_by_layer_hybrid(torch, cfg, params, tokens)
-    handoff_end_to_end(torch, cfg, params, tokens, "hybrid_handoff")
+    handoff_end_to_end(torch, cfg, params, {"tokens": tokens},
+                       "hybrid_handoff")
     handoff_s = time.perf_counter() - t0
     if on_card:
         # two steps: the profiler's bookkeeping of ~25,000 launches a
@@ -2570,6 +2687,683 @@ def handoff_by_layer_hybrid(torch, cfg, params, tokens):
     emit({"phase": "hybrid_handoff_by_layer", "S": S, "window": cfg.window,
           "state_rel": worst, "tolerance": 1e-4,
           "layer_ms_median": statistics.median(ms)})
+
+
+# --------------------------------------------------- the vlm and audio archs
+
+def grid_positions3(n_patches, n_text, B):
+    """Qwen2-VL's layout as a numpy (3, B, n_patches + n_text) int32 array:
+    patch i of a square grid of side s at (t=0, h=i // s, w=i % s), then
+    the text at max + 1 onwards on all three streams."""
+    import numpy as np
+
+    side = max(1, math.isqrt(n_patches))
+    i = np.arange(n_patches)
+    grid = np.stack([0 * i, i // side, i % side])
+    text = np.arange(n_text) + (grid.max() + 1 if n_patches else 0)
+    pos = np.concatenate([grid, np.stack([text] * 3)], axis=1)
+    return np.ascontiguousarray(np.broadcast_to(
+        pos[:, None], (3, B, n_patches + n_text)).astype(np.int32))
+
+
+def stub_batch(cfg, n_text, B, seed, grid=True):
+    """A served batch of ``cfg``'s arch from a numpy seed: tokens, and for
+    vlm ``n_patches`` patch embeddings ~ N(0, 1) (with grid positions, or
+    none: ``arange`` on the three streams), for audio frames ~ N(0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, n_text),
+                                    dtype=np.int32)}
+    if cfg.arch == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model), dtype=np.float32)
+        if grid:
+            batch["positions3"] = grid_positions3(cfg.n_patches, n_text, B)
+    if cfg.arch == "audio":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_source), dtype=np.float32)
+    return batch
+
+
+def timed_generation(torch, eng):
+    """Wrap ``eng.ops``' prefill and decode step: each call's seconds
+    (synchronized on a card), how often each ran, and for an
+    encoder-decoder the cache's cross K/V as the prefill left it (a copy)
+    beside the last cache."""
+    ops = eng.ops
+    rec = {"prefill_s": [], "decode_s": [], "cache": None, "xkv0": None}
+
+    def sync():
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def prefill(*a):
+        sync()
+        t0 = time.perf_counter()
+        out = ops.prefill(*a)
+        sync()
+        rec["prefill_s"].append(time.perf_counter() - t0)
+        rec["cache"] = out[1]
+        if "xk" in out[1]["layers"]:
+            rec["xkv0"] = tuple(out[1]["layers"][k].clone()
+                                for k in ("xk", "xv"))
+        return out
+
+    def decode_step(*a):
+        sync()
+        t0 = time.perf_counter()
+        out = ops.decode_step(*a)
+        sync()
+        rec["decode_s"].append(time.perf_counter() - t0)
+        rec["cache"] = out[1]
+        return out
+
+    eng.ops = dataclasses.replace(ops, prefill=prefill,
+                                  decode_step=decode_step)
+    return rec
+
+
+def generated_three_ways(torch, cfg, params, batches, steps, device="cuda"):
+    """``GenerationEngine`` over each of ``batches`` three times on one
+    init: on ``device`` in float32 (card32, greedy), then on the CPU in
+    float32 and float64 fed card32's tokens.  Returns each run's launch
+    counts and the per-call max|card32 - cpu64| and max|cpu32 - cpu64|
+    (each prefill, then each step, batch after batch)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.params import params_from_numpy, params_to_numpy
+    from repro_torch.serving import GenerationEngine
+
+    tree = params_to_numpy(params)
+    runs = {"card32": (params, device, torch.float32),
+            "cpu32": (params_from_numpy(tree, "cpu"), "cpu", torch.float32),
+            "cpu64": (params_from_numpy(_cast_tree(tree, np.float64), "cpu"),
+                      "cpu", torch.float64)}
+    logits, counts, feeds = {}, {}, []
+    for name, (p, dev, dtype) in runs.items():
+        eng = GenerationEngine(cfg, p, dtype=dtype, device=dev)
+        ops.reset_launch_counts()
+        logits[name] = []
+        for i, batch in enumerate(batches):
+            feed = None if name == "card32" else feeds[i]
+            toks, stats = eng.generate(batch, steps + 1, feed=feed,
+                                       keep_logits=True)
+            if name == "card32":
+                feeds.append(toks.T)
+            logits[name].extend(stats["logits"])
+        counts[name] = ops.launch_counts()
+    require(not any(counts["cpu32"].values())
+            and not any(counts["cpu64"].values()),
+            f"the CPU runs launched kernels: {counts}")
+    require(logits["cpu64"][0].dtype == np.float64, "the fp64 run is not fp64")
+
+    def diffs(a, b):
+        return [float(np.abs(x - y).max()) for x, y in zip(a, b)]
+
+    return (logits, counts, diffs(logits["card32"], logits["cpu64"]),
+            diffs(logits["cpu32"], logits["cpu64"]))
+
+
+def vlm_parity_phase(torch, device="cuda", text=None, prompts=None):
+    """Gate V1: a reduced qwen2-vl-7b (``VLM_REDUCED``: L=4, d=256, H=4,
+    Hk=1, hd=64, M-RoPE sections (8, 12, 12), 16 patches, vocab 512) on
+    one init, on ``device`` (the card) in float32 and on the CPU in
+    float32 and float64 fed the card's greedy tokens, two routes:
+    ``GenerationEngine`` at B=2 over 16 patch embeddings and grid
+    positions before ``VLM_SMALL_TEXT`` text tokens (totals 2048 and 116),
+    and ``BatchEngine`` per slot over the text prompts
+    ``VLM_SMALL_PROMPTS``, ``VLM_SMALL_STEPS`` steps each.  Over every
+    prefill's and step's logits: max|card32 - cpu64| <= max(1e-4, 2
+    max|cpu32 - cpu64|).  The card launches ``flash_attention`` exactly
+    L x (the prefills of >= 2048 tokens) = 4 x 3 times, nothing else; the
+    CPU runs launch nothing.  ``device="cpu"`` with short lengths
+    rehearses it on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import decoder
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-vl-7b").reduced(**VLM_REDUCED)
+    L = cfg.n_layers
+    text = VLM_SMALL_TEXT if text is None else text
+    lengths = VLM_SMALL_PROMPTS if prompts is None else prompts
+    params = decoder.init_params(
+        cfg, torch.Generator(device=device).manual_seed(9), device)
+    batches = [stub_batch(cfg, n, 2, 90 + n) for n in text]
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+               for n in lengths]
+    gen = generated_three_ways(torch, cfg, params, batches, VLM_SMALL_STEPS,
+                               device)
+    slot = served_three_ways(torch, cfg, 9, prompts, VLM_SMALL_STEPS, device,
+                             params=params)
+    n_long = (sum(n + cfg.n_patches >= 2048 for n in text)
+              + sum(n >= 2048 for n in lengths))
+    want = {k: 0 for k in kops.launch_counts()}
+    if device == "cuda":
+        want["flash_attention"] = L * n_long
+        require(n_long == 3, f"{n_long} long prefills")
+    counts = {k: gen[1]["card32"][k] + slot[1]["card32"][k] for k in want}
+    card, cpu = gen[2] + slot[2], gen[3] + slot[3]
+    limit = max(1e-4, 2 * max(cpu))
+    line = {"phase": "vlm_parity", "config": f"qwen2-vl-7b reduced(L={L}, "
+            f"d={cfg.d_model}, H={cfg.n_heads}, Hk={cfg.n_kv_heads}, "
+            f"hd={cfg.hd}, sections={list(cfg.mrope_sections)}, n_patches="
+            f"{cfg.n_patches}, vocab={cfg.vocab})", "device": device,
+            "generation_text": list(text), "slot_prompts": list(lengths),
+            "decode_steps": VLM_SMALL_STEPS, "launches_card32": counts,
+            "max_abs_logit_err": {"card32_vs_cpu64": max(card),
+                                  "cpu32_vs_cpu64": max(cpu)},
+            "v1_limit": limit,
+            "generation_card32_vs_cpu64": max(gen[2]),
+            "slot_card32_vs_cpu64": max(slot[2]),
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    require(counts == want, f"card launches {counts}, want {want}")
+    require(max(card) <= limit, f"gate V1 fails: card32 vs cpu64 {max(card)} "
+            f"> {limit}")
+    return line
+
+
+def audio_parity_phase(torch, device="cuda", prompts=None):
+    """Gate A1: a reduced whisper-small (L=2, enc_layers 2, enc_seq 64,
+    d=256, H=Hk=4, hd=64, vocab 512) through ``GenerationEngine`` at B=2,
+    prompts ``AUDIO_SMALL_PROMPTS`` (2048 and 37), ``AUDIO_SMALL_STEPS``
+    steps each, on one init on ``device`` in float32 and on the CPU in
+    float32 and float64 fed the card's tokens: V1's bound, and
+    ``flash_attention`` launched exactly L x 1 times on the card (the
+    2048-token prompt's decoder self-attention; the encoder and the
+    cross-attention launch nothing), never on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import encdec
+
+    t0 = time.perf_counter()
+    cfg = get_config("whisper-small").reduced()
+    L = cfg.n_layers
+    lengths = AUDIO_SMALL_PROMPTS if prompts is None else prompts
+    params = encdec.init_params(
+        cfg, torch.Generator(device=device).manual_seed(11), device)
+    batches = [stub_batch(cfg, n, 2, 110 + n) for n in lengths]
+    _, counts, card, cpu = generated_three_ways(
+        torch, cfg, params, batches, AUDIO_SMALL_STEPS, device)
+    want = {k: 0 for k in kops.launch_counts()}
+    if device == "cuda":
+        want["flash_attention"] = L * sum(n >= 2048 for n in lengths)
+        require(want["flash_attention"] == L, f"launches {want}")
+    limit = max(1e-4, 2 * max(cpu))
+    line = {"phase": "audio_parity", "config": f"whisper-small reduced(L={L}"
+            f", enc_layers={cfg.enc_layers}, enc_seq={cfg.enc_seq}, d="
+            f"{cfg.d_model}, H={cfg.n_heads}, hd={cfg.hd}, vocab={cfg.vocab})",
+            "device": device, "prompts": list(lengths), "batch": 2,
+            "decode_steps": AUDIO_SMALL_STEPS,
+            "launches_card32": counts["card32"],
+            "max_abs_logit_err": {"card32_vs_cpu64": max(card),
+                                  "cpu32_vs_cpu64": max(cpu)},
+            "a1_limit": limit, "card32_vs_cpu64_per_call": card,
+            "cpu32_vs_cpu64_per_call": cpu,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    require(counts["card32"] == want, f"card launches {counts['card32']}, "
+            f"want {want}")
+    require(max(card) <= limit, f"gate A1 fails: card32 vs cpu64 {max(card)} "
+            f"> {limit}")
+    return line
+
+
+def handoff_by_layer_kv(torch, phase, x, pos, layers, tol=1e-4):
+    """Gates V3's and A3's handoff, layer by layer: each layer, fed the
+    input that prefill(S) gives it, runs prefill(S) and prefill(S - 1) +
+    one decode step from a fresh cache; its k and v (every slot of the
+    cache) lie within ``tol`` of their largest entry.  ``layers`` holds a
+    (run, fresh) pair per layer: ``run(x, pos, cache, cache_len) -> (x,
+    cache)``, ``fresh() -> cache`` of S + 1 slots."""
+    S = x.shape[1]
+    worst = {"k": 0.0, "v": 0.0}
+    ms = []
+    for j, (run, fresh) in enumerate(layers):
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_next, whole = run(x, pos, fresh(), 0)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        _, part = run(x[:, :S - 1], pos[..., :S - 1], fresh(), 0)
+        _, part = run(x[:, S - 1:], pos[..., S - 1:], part, S - 1)
+        for key in worst:
+            a, b = part[key], whole[key]
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            worst[key] = max(worst[key], rel)
+            require(rel <= tol, f"{phase} layer {j} {key}: handoff differs "
+                    f"by {rel} of its largest entry")
+        x = x_next
+    emit({"phase": f"{phase}_by_layer", "S": S, "kv_rel": worst,
+          "tolerance": tol, "layer_ms_median": statistics.median(ms)})
+
+
+def handoff_end_to_end(torch, cfg, params, batch, phase="xlstm_handoff",
+                       moved_keys=(), ref64=False):
+    """Gates G3's, Y3's, V3's and A3's end-to-end handoff on the same
+    model: prefill(batch) (route a) against prefill(batch less its last
+    token) + one decode step of that token (route b).  G3's form: |b - a|
+    is no larger than what a one-ulp move of every input embedding entry
+    (the token embeddings, and ``moved_keys`` of the batch) does to a's
+    logits in the same run.  With
+    ``ref64`` (A3's form) that ratio is reported and the gate is instead
+    held against both routes in float64 on a float64 copy of the weights:
+    |a64 - b64| <= 1e-10 max|a64| (one function), and |b - b64| <= 2
+    |a - a64| + 1e-6 max|a64| (the handoff route's fp32 error at most
+    twice the prefill's, G1's form)."""
+    from repro_torch.models import ops_for
+    from repro_torch.tree import tree_map
+
+    ops = ops_for(cfg)
+    tokens = batch["tokens"]
+    dev = tokens.device
+    n = tokens.shape[1] + (batch["vision_embeds"].shape[1]
+                           if "vision_embeds" in batch else 0)
+    inf = torch.tensor(float("inf"), device=dev)
+
+    def prefill(p, b, dtype=torch.float32):
+        cache = ops.init_cache(cfg, tokens.shape[0], n + 1, dtype, device=dev)
+        return ops.prefill(p, cfg, b, cache)
+
+    def routes(p, dtype=torch.float32):
+        whole, _ = prefill(p, batch, dtype)
+        _, cache = prefill(p, dict(batch, tokens=tokens[:, :-1]), dtype)
+        step, _ = ops.decode_step(p, cfg, tokens[:, -1], cache)
+        return whole, step
+
+    whole, step = routes(params)
+    moved = dict(params, embed=torch.nextafter(params["embed"], inf))
+    ulp, _ = prefill(moved, {k: torch.nextafter(v, inf) if k in moved_keys
+                             else v for k, v in batch.items()})
+    del moved
+    handoff = (step - whole).abs().max().item()
+    ulp_change = (ulp - whole).abs().max().item()
+    line = {"phase": phase, "S": n, "handoff_max_abs_logit_diff": handoff,
+            "one_ulp_embedding_max_abs_logit_change": ulp_change,
+            "handoff_over_one_ulp": handoff / ulp_change,
+            "logit_std": whole.std().item()}
+    require(bool(torch.isfinite(step).all() and torch.isfinite(whole).all()),
+            "non-finite handoff logits")
+    if not ref64:
+        emit(line)
+        require(handoff <= ulp_change, f"{phase}: {n - 1} + 1 vs {n} logits "
+                f"differ by {handoff}, more than one ulp of the embeddings "
+                f"moves them ({ulp_change})")
+        return
+    p64 = tree_map(lambda t: t.double(), params)
+    whole64, step64 = routes(p64, torch.float64)
+    del p64
+    top = whole64.abs().max().item()
+    line.update({
+        "route64_max_abs_diff": (whole64 - step64).abs().max().item(),
+        "prefill32_vs_64": (whole.double() - whole64).abs().max().item(),
+        "handoff32_vs_64": (step.double() - step64).abs().max().item(),
+        "max_abs_logit64": top})
+    line["a3_limit"] = 2 * line["prefill32_vs_64"] + 1e-6 * top
+    emit(line)
+    require(line["route64_max_abs_diff"] <= 1e-10 * top,
+            f"{phase}: in float64 the two routes differ by "
+            f"{line['route64_max_abs_diff']}")
+    require(line["handoff32_vs_64"] <= line["a3_limit"],
+            f"{phase}: the handoff route's fp32 error "
+            f"{line['handoff32_vs_64']} > {line['a3_limit']}")
+
+
+def profile_generation(torch, eng, batch, steps: int = 2):
+    """A ``GenerationEngine`` decode step's device busy and idle share:
+    prefill, one warm step, then ``steps`` steps under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = eng.cfg
+    toks = {k: torch.as_tensor(v, device=eng.device) for k, v in batch.items()}
+    B, S = toks["tokens"].shape
+    extra = cfg.n_patches if cfg.arch == "vlm" else 0
+    cache = eng.ops.init_cache(cfg, B, S + extra + steps + 2, device=eng.device)
+    with torch.no_grad():
+        logits, cache = eng.ops.prefill(eng.params, cfg, toks, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        logits, cache = eng.ops.decode_step(eng.params, cfg, tok, cache)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                logits, cache = eng.ops.decode_step(eng.params, cfg, tok,
+                                                    cache)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    del cache
+    emit({"phase": "decode_profile", "model": cfg.name,
+          "engine": "GenerationEngine", "batch": B, "steps": steps,
+          **device_time(prof, wall_us, steps)})
+
+
+def serving_vlm_phase(torch, device="cuda", cfg=None, text=VLM_TEXT,
+                      prompts=VLM_PROMPTS, cli_prompt=2048):
+    """Gates V2 and V3: qwen2-vl-7b at full width and depth in fp32.
+    ``GenerationEngine`` at B=2 over 256 patch embeddings and grid
+    positions before ``VLM_TEXT`` text tokens, ``VLM_STEPS`` greedy steps;
+    then text per slot through ``BatchEngine`` (4 sessions, page 32,
+    ``VLM_PROMPTS``, ``VLM_STEPS`` steps): finite logits of the vocab's
+    width; ``flash_attention`` launched exactly 28 x (the prefills of >=
+    2048 tokens) and nothing else; 0 pages after close; each session's
+    cache ``VLM_KV_BYTES_PER_TOKEN`` a token of its capacity.  Then V3's
+    handoff on the first slot prompt with 256 patches (broadcast
+    positions: prefill(2303) + one step against prefill(2304)), a profile
+    of 2 steps of each engine, and, the model freed, ``launch.serve.main``
+    (a 2048-token prompt, 8 tokens).  ``device="cpu"`` with a reduced ``cfg``
+    and short lengths rehearses it (no launches, no profile)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.simnet import Sim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import decoder
+    from repro_torch.serving import BatchEngine, GenerationEngine, ShardModule
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    full = cfg is None
+    cfg = get_config("qwen2-vl-7b") if full else cfg
+    L, on_card = cfg.n_layers, device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = decoder.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    require(n_params == cfg.param_count() + 2 * L * cfg.d_model,
+            f"{n_params} parameters in the tree")
+    per_token = L * 2 * cfg.n_kv_heads * cfg.hd * 4
+    if full:
+        require(per_token == VLM_KV_BYTES_PER_TOKEN, f"{per_token} B a token")
+
+    def want(n_long):
+        w = {k: 0 for k in ops.launch_counts()}
+        if on_card:
+            w["flash_attention"] = L * n_long
+        return w
+
+    # GenerationEngine: patches, grid positions, the text
+    batch = stub_batch(cfg, text, 2, 0)
+    eng = GenerationEngine(cfg, params, device=device)
+    rec = timed_generation(torch, eng)
+    ops.reset_launch_counts()
+    toks, stats = eng.generate(batch, VLM_STEPS + 1, keep_logits=True)
+    gen_counts = ops.launch_counts()
+    gen_logits = stats["logits"]
+    del eng, stats
+    gen = {"batch": 2, "n_patches": cfg.n_patches, "text": text,
+           "prefill_ms": rec["prefill_s"][0] * 1e3,
+           "decode_ms_per_step_median":
+               statistics.median(rec["decode_s"]) * 1e3,
+           "tokens_per_s": 2 * VLM_STEPS / sum(rec["decode_s"]),
+           "launches": gen_counts, "first_tokens": toks[:, :4].tolist()}
+    del rec
+
+    # BatchEngine per slot: text only
+    rng = np.random.default_rng(0)
+    slot_prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+                    for n in prompts]
+    module = ShardModule(cfg, params, (0, L), is_first=True, is_last=True)
+    sim = Sim(seed=0)
+    beng = BatchEngine(module, sim, n_slots=4, page_size=32, device=device)
+    require(not beng.fused, "qwen2-vl must serve per slot")
+    ops.reset_launch_counts()
+    first, prefill_s, logits, step_s, feed, held = _drive(
+        beng, sim, slot_prompts, VLM_STEPS)
+    slot_counts = ops.launch_counts()
+    pages_after = beng.stats["pages"]
+    del beng, sim             # the Sim's leak gauge holds the engine
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    capacity = [32 * -(-(n + VLM_STEPS) // 32) for n in prompts]
+    line = {"phase": "serving_vlm", "model": cfg.name, "n_layers": L,
+            "d_model": cfg.d_model, "params": n_params, "init_s": init_s,
+            "generation": gen,
+            "slot": {"prompts": list(prompts),
+                     "prefill_ms": [t * 1e3 for t in prefill_s],
+                     "decode_steps": VLM_STEPS,
+                     "decode_ms_per_step_median":
+                         statistics.median(step_s) * 1e3,
+                     "tokens_per_s": len(prompts) * VLM_STEPS / sum(step_s),
+                     "launches": slot_counts,
+                     "pages_after_close": pages_after,
+                     "cache_bytes_per_session": held,
+                     "kv_bytes_per_token": per_token},
+            "max_memory_allocated_bytes": peak}
+    emit(line)
+    for out in gen_logits + [first] + logits:
+        require(out.shape[1] == cfg.vocab, f"shape {out.shape}")
+        require(bool(np.isfinite(out).all()), "non-finite logits")
+    require(gen_counts == want(int(text + cfg.n_patches >= 2048)),
+            f"qwen2-vl generation launches {gen_counts}")
+    require(slot_counts == want(sum(n >= 2048 for n in prompts)),
+            f"qwen2-vl per-slot launches {slot_counts}")
+    require(pages_after == 0, f"pages after close: {pages_after}")
+    require(held == [per_token * c for c in capacity],
+            f"cache bytes {held}, want {per_token} B x {capacity}")
+    del gen_logits, first, logits
+
+    # V3: prefill(S - 1) + one step against prefill(S), S = patches + text
+    t0 = time.perf_counter()
+    hand = stub_batch(cfg, prompts[0], 1, 1, grid=False)
+    hand["tokens"] = slot_prompts[0]
+    hand = {k: torch.from_numpy(v).to(device) for k, v in hand.items()}
+    x = torch.cat([hand["vision_embeds"], params["embed"][
+        hand["tokens"].long()]], dim=1)
+    S = x.shape[1]
+    pos = torch.arange(S, device=device, dtype=torch.int32)[None, None].expand(
+        3, 1, S)
+    kv_shape = (1, S + 1, cfg.n_kv_heads, cfg.hd)
+
+    def layer(j):
+        bp = decoder.layer_params(params["blocks"], j)
+
+        def run(x, pos, cache, cache_len):
+            y, c, _ = decoder.run_block(cfg, bp, x, pos, cache, cache_len,
+                                        layer_idx=j)
+            return y, c
+
+        def fresh():
+            return {k: torch.zeros(kv_shape, device=device)
+                    for k in ("k", "v")}
+        return run, fresh
+
+    with torch.no_grad():
+        handoff_by_layer_kv(torch, "vlm_handoff", x, pos,
+                            [layer(j) for j in range(L)])
+        del x
+        handoff_end_to_end(torch, cfg, params, hand, "vlm_handoff",
+                           moved_keys=("vision_embeds",))
+    handoff_s = time.perf_counter() - t0
+    if on_card:
+        profile_decode(torch, module, slot_prompts, feed, steps=2)
+        eng = GenerationEngine(cfg, params, device=device)
+        profile_generation(torch, eng, stub_batch(cfg, text, 2, 0))
+        del eng
+    del module, params, hand
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the launcher, once, on the same device, after the model is freed
+    t0 = time.perf_counter()
+    argv = ["--arch", "qwen2-vl-7b", "--prompt-len", str(cli_prompt), "--gen",
+            "8", "--batch", "1", "--device", device]
+    serve_vocab = cfg.vocab
+    if not full:
+        argv.append("--reduced")
+        serve_vocab = get_config("qwen2-vl-7b").reduced().vocab
+    cli = serve.main(argv)
+    serve_s = time.perf_counter() - t0
+    require(cli.shape == (1, 8) and bool((cli >= 0).all())
+            and bool((cli < serve_vocab).all()), f"launch.serve gave {cli}")
+    emit({"phase": "serving_vlm_done", "serve_cli_s": serve_s,
+          "handoff_s": handoff_s,
+          "max_memory_allocated_bytes":
+              torch.cuda.max_memory_allocated() if on_card else None,
+          "seconds": time.perf_counter() - t_phase})
+    return line
+
+
+def serving_audio_phase(torch, device="cuda", cfg=None,
+                        prompts=AUDIO_PROMPTS, cli_prompt=448):
+    """Gates A2 and A3: whisper-small at full width and depth in fp32
+    (enc_seq 1500).  ``GenerationEngine`` at B=4 over frames ~ N(0, 1)
+    and a prompt of each length of ``AUDIO_PROMPTS`` (448, 2048),
+    ``AUDIO_STEPS`` greedy steps each: finite logits of the vocab's
+    width; ``flash_attention`` launched exactly 12 times for the 2048
+    prompt and never for 448, nothing else; the encoder runs once per
+    generation; the cross K/V, ``AUDIO_CROSS_BYTES`` a session, is
+    ``torch.equal`` after the last step to what the prefill wrote.  Then
+    A3's handoff (prefill(447) + one step against prefill(448)), a
+    profile of 2 decode steps, and ``launch.serve.main`` (a 448-token
+    prompt, 8 tokens).  ``device="cpu"`` with a reduced ``cfg`` and short
+    prompts rehearses it."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    from repro_torch.serving import GenerationEngine
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    full = cfg is None
+    cfg = get_config("whisper-small") if full else cfg
+    L, on_card = cfg.n_layers, device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = encdec.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    cross = L * 2 * cfg.enc_seq * cfg.n_kv_heads * cfg.hd * 4
+    if full:
+        require(cross == AUDIO_CROSS_BYTES, f"{cross} B of cross K/V")
+
+    runs = []
+    real_encode = encdec.encode
+    encodes = []
+
+    def counting_encode(*a):
+        encodes.append(1)
+        return real_encode(*a)
+
+    encdec.encode = counting_encode
+    try:
+        for n in prompts:
+            batch = stub_batch(cfg, n, AUDIO_BATCH, n)
+            eng = GenerationEngine(cfg, params, device=device)
+            rec = timed_generation(torch, eng)
+            encodes.clear()
+            ops.reset_launch_counts()
+            toks, stats = eng.generate(batch, AUDIO_STEPS + 1,
+                                       keep_logits=True)
+            counts = ops.launch_counts()
+            layers = rec["cache"]["layers"]
+            held = sum(layers[k].numel() * layers[k].element_size()
+                       for k in ("xk", "xv")) // AUDIO_BATCH
+            kept = all(torch.equal(layers[k], x0)
+                       for k, x0 in zip(("xk", "xv"), rec["xkv0"]))
+            want = {k: 0 for k in counts}
+            if on_card:
+                want["flash_attention"] = L * (n >= 2048)
+            runs.append({"prompt": n, "batch": AUDIO_BATCH,
+                         "prefill_ms": rec["prefill_s"][0] * 1e3,
+                         "decode_steps": len(rec["decode_s"]),
+                         "decode_ms_per_step_median":
+                             statistics.median(rec["decode_s"]) * 1e3,
+                         "tokens_per_s": AUDIO_BATCH * len(rec["decode_s"])
+                         / sum(rec["decode_s"]),
+                         "launches": counts, "encoder_runs": len(encodes),
+                         "cross_kv_bytes_per_session": held,
+                         "cross_kv_unchanged": kept})
+            for out in stats["logits"]:
+                require(out.shape == (AUDIO_BATCH, cfg.vocab)
+                        and bool(np.isfinite(out).all()),
+                        f"whisper logits {out.shape} not finite")
+            require(counts == want, f"whisper launches {counts} != {want}")
+            require(len(encodes) == 1, f"the encoder ran {len(encodes)} times")
+            require(held == cross, f"{held} B of cross K/V a session")
+            require(kept, "decode changed the cross K/V")
+            del eng, rec, layers, stats
+    finally:
+        encdec.encode = real_encode
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    line = {"phase": "serving_audio", "model": cfg.name, "n_layers": L,
+            "enc_layers": cfg.enc_layers, "enc_seq": cfg.enc_seq,
+            "d_model": cfg.d_model, "params": n_params, "init_s": init_s,
+            "runs": runs, "max_memory_allocated_bytes": peak}
+    emit(line)
+
+    # A3: prefill(447) + one step against prefill(448)
+    t0 = time.perf_counter()
+    hand = stub_batch(cfg, prompts[0], 1, 3)
+    hand = {k: torch.from_numpy(v).to(device) for k, v in hand.items()}
+    with torch.no_grad():
+        enc_out = encdec.encode(params, cfg, hand["frames"])
+        x = params["embed"][hand["tokens"].long()]
+        S = x.shape[1]
+        pos = torch.arange(S, device=device, dtype=torch.int32)[None]
+        kv_shape = (1, S + 1, cfg.n_kv_heads, cfg.hd)
+
+        def layer(j):
+            bp = encdec.layer_params(params["dec_blocks"], j)
+            xk, xv = encdec.cross_kv(bp["xattn"], cfg, enc_out)
+
+            def run(x, pos, cache, cache_len):
+                return encdec.run_dec_block(cfg, bp, x, pos, cache, cache_len)
+
+            def fresh():
+                return {"k": torch.zeros(kv_shape, device=device),
+                        "v": torch.zeros(kv_shape, device=device),
+                        "xk": xk, "xv": xv}
+            return run, fresh
+
+        handoff_by_layer_kv(torch, "audio_handoff", x, pos,
+                            [layer(j) for j in range(L)])
+        del x, enc_out
+        handoff_end_to_end(torch, cfg, params, hand, "audio_handoff",
+                           moved_keys=("frames",), ref64=True)
+    handoff_s = time.perf_counter() - t0
+    if on_card:
+        eng = GenerationEngine(cfg, params, device=device)
+        profile_generation(torch, eng, stub_batch(cfg, prompts[0],
+                                                  AUDIO_BATCH, 4))
+        del eng
+
+    t0 = time.perf_counter()
+    argv = ["--arch", "whisper-small", "--prompt-len", str(cli_prompt),
+            "--gen", "8", "--batch", "1", "--device", device]
+    serve_vocab = cfg.vocab
+    if not full:
+        argv.append("--reduced")
+        serve_vocab = get_config("whisper-small").reduced().vocab
+    cli = serve.main(argv)
+    serve_s = time.perf_counter() - t0
+    require(cli.shape == (1, 8) and bool((cli >= 0).all())
+            and bool((cli < serve_vocab).all()), f"launch.serve gave {cli}")
+    emit({"phase": "serving_audio_done", "serve_cli_s": serve_s,
+          "handoff_s": handoff_s, "seconds": time.perf_counter() - t_phase})
+    return line
 
 
 TRAIN_STEPS = 4
@@ -2873,47 +3667,12 @@ def handoff_by_layer(torch, cfg, params, tokens):
           "slstm_share_of_layer_time": sum(ms_by_kind["slstm"]) / total})
 
 
-def handoff_end_to_end(torch, cfg, params, tokens, phase="xlstm_handoff"):
-    """Gates G3's and Y3's end-to-end handoff on the same model: |logits(S
-    - 1 + 1) - logits(S)| is no larger than what a one-ulp move of every
-    input embedding entry does to prefill(S)'s logits in the same run."""
-    from repro_torch.models import decoder
-
-    S = tokens.shape[1]
-    dev = tokens.device
-
-    def prefill(p, toks):
-        cache = decoder.init_cache(cfg, 1, S + 1, device=dev)
-        return decoder.prefill(p, cfg, {"tokens": toks}, cache)
-
-    whole, _ = prefill(params, tokens)
-    part, cache = prefill(params, tokens[:, :S - 1])
-    step, _ = decoder.decode_step(params, cfg, tokens[:, S - 1], cache)
-    del cache
-    moved = dict(params, embed=torch.nextafter(
-        params["embed"], torch.tensor(float("inf"), device=dev)))
-    ulp, _ = prefill(moved, tokens)
-    del moved
-    handoff = (step - whole).abs().max().item()
-    ulp_change = (ulp - whole).abs().max().item()
-    emit({"phase": phase, "S": S,
-          "handoff_max_abs_logit_diff": handoff,
-          "one_ulp_embedding_max_abs_logit_change": ulp_change,
-          "logit_std": whole.std().item()})
-    require(bool(torch.isfinite(step).all() and torch.isfinite(whole).all()),
-            "non-finite handoff logits")
-    require(handoff <= ulp_change, f"2047 + 1 vs 2048 logits differ by "
-            f"{handoff}, more than one ulp of the embeddings moves them "
-            f"({ulp_change})")
-
-
 def profile_decode(torch, module, prompts, feed, steps: int = 4):
     """Where a fused decode step's time goes: ``torch.profiler`` over a
     few steps of the same feed; device busy share = summed kernel time
     over the window's wall time.  For MoE, a second window of as many steps
     that records shapes gives the router product's and the gating's device
     time per step (``router_gating_ms``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.simnet import Sim
@@ -2943,21 +3702,30 @@ def profile_decode(torch, module, prompts, feed, steps: int = 4):
             torch.cuda.synchronize()
         moe = router_gating_ms(shaped, module.cfg, len(sessions), steps)
     eng.close(sessions)
-    kernels = []          # device-side events only (ops would count twice)
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            kernels.append((ev.self_device_time_total, ev.count, ev.key))
-    kernels.sort(reverse=True)
+    emit({"phase": "decode_profile", "model": module.cfg.name, "steps": steps,
+          **device_time(prof, wall_us, steps), **moe})
+
+
+def device_time(prof, wall_us, steps) -> dict:
+    """A profiled window of ``steps`` decode steps that took ``wall_us``:
+    the device's busy ms a step (summed kernel time; device-side events
+    only, since ops would count twice), its idle share, and the largest
+    kernels."""
+    from torch.autograd import DeviceType
+
+    kernels = sorted(((ev.self_device_time_total, ev.count, ev.key)
+                      for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA
+                      and ev.self_device_time_total > 0), reverse=True)
     require(bool(kernels), "the profiler saw no device kernel")
     busy = sum(k[0] for k in kernels)
-    emit({"phase": "decode_profile", "model": module.cfg.name, "steps": steps,
-          "wall_ms_per_step": wall_us / steps / 1e3,
-          "device_busy_ms_per_step": busy / steps / 1e3,
-          "device_idle_share": 1.0 - busy / wall_us,
-          "top_device_ops": [
-              {"name": name[:80], "calls_per_step": n / steps,
-               "ms_per_step": us / steps / 1e3}
-              for us, n, name in kernels[:12]], **moe})
+    return {"wall_ms_per_step": wall_us / steps / 1e3,
+            "device_busy_ms_per_step": busy / steps / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "top_device_ops": [
+                {"name": name[:80], "calls_per_step": n / steps,
+                 "ms_per_step": us / steps / 1e3}
+                for us, n, name in kernels[:12]]}
 
 
 def router_gating_ms(prof, cfg, M: int, steps: int) -> dict:
@@ -4536,6 +5304,8 @@ def main() -> int:
     small_parity_phase(torch)
     xlstm_parity_phase(torch)
     hybrid_parity_phase(torch)
+    vlm_parity_phase(torch)
+    audio_parity_phase(torch)
     train_parity_phase(torch)
     moe_train_parity_phase(torch)
     counts = serving_phase(torch, "granite-8b", "serving")
@@ -4548,6 +5318,10 @@ def main() -> int:
     xlstm_counts = serving_xlstm_phase(torch)
     release(torch, "serving_hybrid")
     serving_hybrid_phase(torch)
+    release(torch, "serving_vlm")
+    serving_vlm_phase(torch)
+    release(torch, "serving_audio")
+    serving_audio_phase(torch)
     release(torch, "training")
     train_counts, _ = training_phase(torch)
     release(torch, "moe_training")

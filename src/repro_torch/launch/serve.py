@@ -3,10 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --batch 4 --prompt-len 64 --gen 32
 
-``--arch`` takes any ported config: the dense ones (granite-8b, ...), the
-MoE ones (qwen2-moe-a2.7b, dbrx-132b), xlstm-1.3b and hymba-1.5b (its
-k/v a ring buffer of the 2048-token window once prompt and continuation
-reach it).
+``--arch`` takes any config: the dense ones (granite-8b, ...), the MoE
+ones (qwen2-moe-a2.7b, dbrx-132b), xlstm-1.3b, hymba-1.5b (its k/v a
+ring buffer of the 2048-token window once prompt and continuation reach
+it), qwen2-vl-7b (``n_patches`` stubbed patch embeddings ~ N(0, 1) before
+the prompt, positions on all three M-RoPE streams) and whisper-small
+(stubbed frame embeddings ~ N(0, 1) of (batch, enc_seq, d_source)), the
+stubs drawn from the ``--seed`` generator after the prompt, as the JAX
+launcher adds them.
 
 Runs on the card (``--device cuda``, the default) with the full config;
 ``--reduced`` serves the smoke-test width instead, and ``--device cpu``
@@ -60,7 +64,17 @@ def main(argv: Optional[List[str]] = None) -> np.ndarray:
     B, S = args.batch, args.prompt_len
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab, size=(B, S), dtype=np.int32)}
-    eng = GenerationEngine(cfg, params, max_len=S + args.gen + 1,
+    if cfg.arch == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model), dtype=np.float32)
+        batch["positions3"] = np.broadcast_to(
+            np.arange(S + cfg.n_patches, dtype=np.int32),
+            (3, B, S + cfg.n_patches)).copy()
+    if cfg.arch == "audio":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_source), dtype=np.float32)
+    eng = GenerationEngine(cfg, params,
+                           max_len=S + args.gen + cfg.n_patches + 1,
                            device=device)
     t0 = time.perf_counter()
     out, stats = eng.generate(batch, args.gen, temperature=args.temperature,

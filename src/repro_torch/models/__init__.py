@@ -1,6 +1,6 @@
 """Model zoo of the port: ``ops_for(cfg)`` returns the entry points that
-serving and training program against.  The dense, MoE and xLSTM (ssm)
-decoders are ported so far.
+serving and training program against: the decoder ops for the dense, MoE,
+xLSTM (ssm), hybrid and vlm archs, the encoder-decoder ops for audio.
 
     init(cfg, generator, device, dtype) -> params
     forward(params, cfg, batch)         -> (logits, aux)
@@ -13,7 +13,7 @@ decoders are ported so far.
 from dataclasses import dataclass
 from typing import Callable
 
-from . import decoder
+from . import decoder, encdec
 from .config import ModelConfig
 
 
@@ -36,10 +36,21 @@ _DECODER_OPS = ModelOps(
     decode_step=decoder.decode_step,
 )
 
+_ENCDEC_OPS = ModelOps(
+    init=encdec.init_params,
+    forward=encdec.forward,
+    loss_fn=encdec.loss_fn,
+    init_cache=encdec.init_cache,
+    prefill=encdec.prefill,
+    decode_step=encdec.decode_step,
+)
+
 
 def ops_for(cfg: ModelConfig) -> ModelOps:
+    if cfg.arch == "audio":
+        return _ENCDEC_OPS
     decoder.require_ported(cfg)
     return _DECODER_OPS
 
 
-__all__ = ["ModelConfig", "ModelOps", "ops_for", "decoder"]
+__all__ = ["ModelConfig", "ModelOps", "ops_for", "decoder", "encdec"]

@@ -1,4 +1,4 @@
-"""Shared layers: norms, rotary embeddings, attention, MLP.
+"""Shared layers: norms, rotary embeddings (incl. M-RoPE), attention, MLP.
 
 Plain functions over explicit parameter dicts of tensors, keeping the JAX
 package's ``(in, out)`` weight layout (``x @ W``) and its numerics: fp32
@@ -90,6 +90,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the head dim's frequency pairs split
+    into (t, h, w) sections, each rotated by its own position stream.
+
+    x: (B, S, H, hd); positions3: (3, B, S) int — temporal, height, width.
+    ``sections`` counts frequency pairs per stream (sum == hd // 2; as
+    JAX's ``total_repeat_length``, a shorter sum repeats the last stream
+    and a longer one is cut).  The angles are fp32, as in
+    :func:`apply_rope`, which this equals when the three streams are
+    equal."""
+    hd = x.shape[-1]
+    up = torch.promote_types(x.dtype, torch.float32)
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ids = [i for i, n in enumerate(sections) for _ in range(n)]
+    ids = (ids + ids[-1:] * hd)[:hd // 2]
+    sec_ids = torch.tensor(ids, device=x.device)             # (hd/2,)
+    pos = positions3.float()[sec_ids]                        # (hd/2,B,S)
+    angles = (torch.movedim(pos, 0, -1) * freqs).to(up)      # (B,S,hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(up), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ------------------------------------------------------------------- attention
 
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
@@ -143,11 +169,6 @@ def causal_mask(s: int, t: int, window: int = 0, offset: int = 0,
     return torch.where(ok, 0.0, -1e9).float()[None, None]
 
 
-def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet")
-
-
 def run_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor,
                   kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -158,9 +179,12 @@ def run_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     With a cache (k, v of shape (B,T,Hk,hd)): write at ``cache_len`` (in
     place) and attend over the cache (decode / incremental prefill).
 
-    positions: (B,S).
+    positions: (B,S), or (3,B,S) when ``cfg.mrope``.  The rotation is
+    applied before either branch, so M-RoPE takes the flash kernel as
+    plain RoPE does; JAX's no-cache branch sends M-RoPE under
+    ``use_flash_kernel`` below ``FLASH_MIN_SEQ`` to the masked
+    ``attention_scores``, the same causal function.
     """
-    _unsupported(cfg)
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(B, S, H, hd)
@@ -169,8 +193,12 @@ def run_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if kv_cache is not None:

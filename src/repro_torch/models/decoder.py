@@ -1,4 +1,4 @@
-"""Decoder-only model: the dense, MoE, xLSTM (ssm) and hybrid
+"""Decoder-only model: the dense, MoE, xLSTM (ssm), hybrid and vlm
 architectures.
 
 Parameters are a dict of tensors in the JAX package's tree layout, so the
@@ -20,8 +20,15 @@ attention and :func:`.ssm.run_mamba` on the same normed input and adds
 their mean, ``0.5 * (attn + ssm)``, before the MLP; its cache holds the
 Mamba state ``h`` (L,B,d_in,N) and ``conv`` (L,B,CONV_K-1,d_in) beside
 k/v, which are a ring buffer of ``cfg.window`` tokens once the cache is
-that long.  Other architectures (vlm, audio) are later slices of the
-port and raise ``NotImplementedError``.  KV caches are updated in place
+that long.  A vlm block is a dense one under M-RoPE: ``batch["vision_embeds"]``
+(B, n_patches, D), the stubbed vision frontend, is prepended to the token
+embeddings, ``batch["positions3"]`` (3, B, S) gives the (t, h, w)
+positions (``arange`` on all three streams when absent), ``forward``
+drops the patch rows from the logits, and a decode step's position is
+the cache length on all three streams, as in JAX (Qwen2-VL would continue
+from ``max(positions3) + 1``; a hazard of the reference, kept).  The
+encoder-decoder (audio) arch is :mod:`.encdec`; here it raises
+``NotImplementedError``.  KV caches are updated in place
 (see :mod:`.common`), and so is the Mamba state of a layer-stacked cache;
 an xLSTM cache is, as in JAX, a list of per-layer state dicts that each
 call replaces.
@@ -43,14 +50,14 @@ from .ssm import (CONV_K, init_mamba, init_mlstm, init_slstm, run_mamba,
                   run_mlstm, run_slstm)
 
 #: architectures this module implements so far
-PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid")
+PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
     if cfg.arch not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {cfg.arch!r} ({cfg.name}) is not ported yet; the port "
-            f"serves the decoder archs {PORTED_ARCHS}")
+            f"arch {cfg.arch!r} ({cfg.name}) is not a decoder arch of this "
+            f"module, which serves {PORTED_ARCHS}")
 
 
 def layer_params(tree: Any, j: int) -> Any:
@@ -191,11 +198,18 @@ def run_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def _embed(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,D), positions (B,S))."""
+    """Returns (x (B,S,D), positions (B,S), or (3,B,S) under M-RoPE).
+    A vlm batch's ``vision_embeds`` come first in x."""
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
+    if cfg.arch == "vlm" and "vision_embeds" in batch:
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device, dtype=torch.int32)[None].expand(B, S)
+    if cfg.mrope:
+        given = batch.get("positions3")
+        positions = (positions[None].expand(3, B, S) if given is None
+                     else given)
     return x, positions
 
 
@@ -224,7 +238,10 @@ def forward(params: Params, cfg: ModelConfig,
             x, _, a = run_block(cfg, bp, x, positions, layer_idx=j)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(params), aux
+    logits = x @ _head(params)
+    if cfg.arch == "vlm" and "vision_embeds" in batch:
+        logits = logits[:, batch["vision_embeds"].shape[1]:]
+    return logits, aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -346,6 +363,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     x = params["embed"][token.long()[:, None]]
     positions = torch.full((B, 1), cache["len"], dtype=torch.int32,
                            device=x.device)
+    if cfg.mrope:
+        positions = positions[None].expand(3, B, 1)
     x, cache = apply_layers_cached(params["blocks"], cfg, x, positions, cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ _head(params))[:, 0], cache

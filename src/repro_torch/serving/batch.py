@@ -26,8 +26,9 @@ Two decode paths share the slot table:
   scales, dequantized in the attention kernel); the partial page keeps an
   fp32 staging tail per slot, and appends requantize it on the device.
 
-* **Per-slot path** (``fused=False``, and always for the xLSTM arch and
-  for a sliding window, hymba's, as in the JAX engine): one batch-1
+* **Per-slot path** (``fused=False``, and always for the xLSTM arch, for
+  a sliding window, hymba's, and for M-RoPE, qwen2-vl's, whose text
+  positions go to all three streams, as in the JAX engine): one batch-1
   ``module.apply`` per session per token over a dense cache grown by whole
   pages.  Recurrent state (xLSTM's, hymba's Mamba ``h`` and ``conv``) has
   a fixed size, and hymba's k/v stop growing at the window: there growth
@@ -70,7 +71,9 @@ PEER_FLOPS = 2.0e11
 #: is bandwidth-bound, so step cost is max(compute, weight+KV traffic)
 PEER_BW = 8.0e10
 
-#: archs the fused paged-decode path supports in this port
+#: archs the fused paged-decode path supports in this port.  The JAX
+#: engine also names vlm, which its M-RoPE test excludes, and audio, which
+#: no shard can hold: ``split_params`` needs a ``blocks`` tree
 _FUSED_ARCHS = ("dense", "moe")
 
 #: distinguishes each engine's leak gauge within one Sim
@@ -448,10 +451,14 @@ class BatchEngine:
     # -- compute ------------------------------------------------------------
     def _positions(self, base: int, B: int, S: int) -> torch.Tensor:
         if S == 1:
-            return torch.full((B, 1), base, dtype=torch.int32,
-                              device=self.device)
-        return torch.arange(S, dtype=torch.int32,
-                            device=self.device)[None].expand(B, S)
+            pos = torch.full((B, 1), base, dtype=torch.int32,
+                             device=self.device)
+        else:
+            pos = torch.arange(S, dtype=torch.int32,
+                               device=self.device)[None].expand(B, S)
+        if self.module.cfg.mrope:       # text only: one stream, three times
+            pos = pos[None].expand((3,) + pos.shape)
+        return pos
 
     def _input(self, x: Any) -> torch.Tensor:
         """Host rows -> device tensor; token ids are embedded on the first

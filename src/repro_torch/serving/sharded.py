@@ -72,12 +72,25 @@ def _slice_layers(tree: Any, lo: int, hi: int) -> Any:
     return tree[lo:hi]
 
 
+def _require_shardable(cfg: ModelConfig) -> None:
+    """Shards hold a decoder's ``blocks``; an encoder-decoder tree has
+    ``enc_blocks`` and ``dec_blocks``, on which the JAX package's
+    ``split_params`` fails too (a ``KeyError``).  Whisper is served by
+    ``GenerationEngine``."""
+    if cfg.arch == "audio":
+        raise ValueError(
+            f"arch 'audio' ({cfg.name}) cannot be split into pipeline "
+            "shards: its tree has enc_blocks and dec_blocks, no blocks; "
+            "serve it with GenerationEngine")
+    decoder.require_ported(cfg)
+
+
 def split_params(cfg: ModelConfig, params: Any,
                  plan: List[Tuple[int, int]]) -> List[Dict[str, Any]]:
     """Per-shard param subsets (first gets embed, last gets norm+head).
     Layer slices are views of the stacked tensors, or sublists of the
     per-layer list."""
-    decoder.require_ported(cfg)
+    _require_shardable(cfg)
     shards = []
     for i, (lo, hi) in enumerate(plan):
         sub: Dict[str, Any] = {"blocks": _slice_layers(params["blocks"], lo, hi)}
@@ -98,7 +111,7 @@ class ShardModule:
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
                  layer_range: Tuple[int, int], is_first: bool, is_last: bool):
-        decoder.require_ported(cfg)
+        _require_shardable(cfg)
         self.cfg = cfg
         self.params = params
         self.lo, self.hi = layer_range
@@ -177,8 +190,18 @@ def _shard_input(m: ShardModule, x: Any, step: bool = False) -> torch.Tensor:
     return xt
 
 
-def _prefix_positions(B: int, S: int, device: torch.device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+def _positions(m: ShardModule, B: int, S: int, device: torch.device,
+               base: Optional[int] = None) -> torch.Tensor:
+    """``arange(S)`` for a prompt or a score, ``base`` for a decode step;
+    under M-RoPE the same positions on all three streams, as the JAX
+    server's."""
+    if base is None:
+        pos = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+    else:
+        pos = torch.full((B, S), base, dtype=torch.int32, device=device)
+    if m.cfg.mrope:
+        pos = pos[None].expand((3, B, S))
+    return pos
 
 
 class InferenceService(Service):
@@ -335,8 +358,7 @@ class ShardServer:
                 x = _shard_input(m, payload["x"])
                 B, S = x.shape[0], x.shape[1]
                 cache = m.init_cache(B, payload["max_len"])
-                out, cache = m.apply(x, _prefix_positions(B, S, x.device),
-                                     cache)
+                out, cache = m.apply(x, _positions(m, B, S, x.device), cache)
                 self.sessions[payload["session"]] = cache
                 if m.is_last:
                     out = m.head(out[:, -1:])[:, 0]
@@ -356,8 +378,7 @@ class ShardServer:
             with torch.no_grad():
                 x = _shard_input(m, payload["x"], step=True)
                 B = x.shape[0]
-                pos = torch.full((B, 1), cache["len"], dtype=torch.int32,
-                                 device=x.device)
+                pos = _positions(m, B, 1, x.device, base=cache["len"])
                 out, cache = m.apply(x, pos, cache)
                 self.sessions[payload["session"]] = cache
                 if m.is_last:
@@ -370,7 +391,7 @@ class ShardServer:
             with torch.no_grad():
                 x = _shard_input(m, payload["x"])
                 B, S = x.shape[0], x.shape[1]
-                out, _ = m.apply(x, _prefix_positions(B, S, x.device), None)
+                out, _ = m.apply(x, _positions(m, B, S, x.device), None)
                 if m.is_last:
                     out = m.head(out)
                 out = _host(out)

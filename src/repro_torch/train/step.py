@@ -45,8 +45,8 @@ def require_trainable(cfg: ModelConfig) -> None:
             "port trains the dense and MoE decoders")
     if cfg.mrope or cfg.window > 0:
         raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and sliding-window attention are not ported "
-            "yet")
+            f"{cfg.name}: training under M-RoPE or a sliding window is not "
+            "ported yet")
 
 
 def train_state_init(cfg: ModelConfig, generator: torch.Generator,
