@@ -301,6 +301,8 @@ fixed before this script's first run of them:
   plus 1e-6 of that logit (G1's form).  V3's one-ulp ratio is printed,
   not held: on the CPU at full width it read 1.03-1.5 over 4 seeds (the
   token and frame embeddings moved), so that form fails a correct port.
+  A wrong handoff fails that limit: the handoff route again with the
+  cached self-attention k and v rounded to bf16 must read above it.
 * V4/A4: every earlier gate passes as written, and the last line is the
   contract's.
 
@@ -2726,13 +2728,16 @@ def stub_batch(cfg, n_text, B, seed, grid=True):
     return batch
 
 
-def timed_generation(torch, eng):
+def timed_generation(torch, eng, feed=None):
     """Wrap ``eng.ops``' prefill and decode step: each call's seconds
-    (synchronized on a card), how often each ran, and for an
-    encoder-decoder the cache's cross K/V as the prefill left it (a copy)
-    beside the last cache."""
+    (synchronized on a card), its logits as a host array (``logits``: the
+    prefill's, then every step's), and for an encoder-decoder the cache's
+    cross K/V as the prefill left it (a copy) beside the last cache.
+    ``feed`` (steps, B) replays another run's tokens: step i decodes
+    ``feed[i]`` in place of the token the engine chose."""
     ops = eng.ops
-    rec = {"prefill_s": [], "decode_s": [], "cache": None, "xkv0": None}
+    rec = {"prefill_s": [], "decode_s": [], "logits": [], "cache": None,
+           "xkv0": None}
 
     def sync():
         if eng.device.type == "cuda":
@@ -2744,18 +2749,23 @@ def timed_generation(torch, eng):
         out = ops.prefill(*a)
         sync()
         rec["prefill_s"].append(time.perf_counter() - t0)
+        rec["logits"].append(out[0].cpu().numpy())
         rec["cache"] = out[1]
         if "xk" in out[1]["layers"]:
             rec["xkv0"] = tuple(out[1]["layers"][k].clone()
                                 for k in ("xk", "xv"))
         return out
 
-    def decode_step(*a):
+    def decode_step(params, cfg, tok, cache):
+        if feed is not None:
+            tok = torch.as_tensor(feed[len(rec["decode_s"])],
+                                  dtype=torch.int32, device=tok.device)
         sync()
         t0 = time.perf_counter()
-        out = ops.decode_step(*a)
+        out = ops.decode_step(params, cfg, tok, cache)
         sync()
         rec["decode_s"].append(time.perf_counter() - t0)
+        rec["logits"].append(out[0].cpu().numpy())
         rec["cache"] = out[1]
         return out
 
@@ -2783,16 +2793,16 @@ def generated_three_ways(torch, cfg, params, batches, steps, device="cuda"):
                       "cpu", torch.float64)}
     logits, counts, feeds = {}, {}, []
     for name, (p, dev, dtype) in runs.items():
-        eng = GenerationEngine(cfg, p, dtype=dtype, device=dev)
         ops.reset_launch_counts()
         logits[name] = []
         for i, batch in enumerate(batches):
-            feed = None if name == "card32" else feeds[i]
-            toks, stats = eng.generate(batch, steps + 1, feed=feed,
-                                       keep_logits=True)
+            eng = GenerationEngine(cfg, p, dtype=dtype, device=dev)
+            rec = timed_generation(
+                torch, eng, None if name == "card32" else feeds[i])
+            toks, _ = eng.generate(batch, steps + 1)
             if name == "card32":
                 feeds.append(toks.T)
-            logits[name].extend(stats["logits"])
+            logits[name].extend(rec["logits"])
         counts[name] = ops.launch_counts()
     require(not any(counts["cpu32"].values())
             and not any(counts["cpu64"].values()),
@@ -2958,7 +2968,9 @@ def handoff_end_to_end(torch, cfg, params, batch, phase="xlstm_handoff",
     held against both routes in float64 on a float64 copy of the weights:
     |a64 - b64| <= 1e-10 max|a64| (one function), and |b - b64| <= 2
     |a - a64| + 1e-6 max|a64| (the handoff route's fp32 error at most
-    twice the prefill's, G1's form)."""
+    twice the prefill's, G1's form).  A wrong handoff must then fail that
+    limit: route b again with the cached self-attention k and v rounded
+    to bf16 before the step (a cache kept in bf16)."""
     from repro_torch.models import ops_for
     from repro_torch.tree import tree_map
 
@@ -2973,11 +2985,12 @@ def handoff_end_to_end(torch, cfg, params, batch, phase="xlstm_handoff",
         cache = ops.init_cache(cfg, tokens.shape[0], n + 1, dtype, device=dev)
         return ops.prefill(p, cfg, b, cache)
 
-    def routes(p, dtype=torch.float32):
-        whole, _ = prefill(p, batch, dtype)
+    def handoff_route(p, dtype=torch.float32, fault=lambda cache: cache):
         _, cache = prefill(p, dict(batch, tokens=tokens[:, :-1]), dtype)
-        step, _ = ops.decode_step(p, cfg, tokens[:, -1], cache)
-        return whole, step
+        return ops.decode_step(p, cfg, tokens[:, -1], fault(cache))[0]
+
+    def routes(p, dtype=torch.float32):
+        return prefill(p, batch, dtype)[0], handoff_route(p, dtype)
 
     whole, step = routes(params)
     moved = dict(params, embed=torch.nextafter(params["embed"], inf))
@@ -3008,7 +3021,20 @@ def handoff_end_to_end(torch, cfg, params, batch, phase="xlstm_handoff",
         "handoff32_vs_64": (step.double() - step64).abs().max().item(),
         "max_abs_logit64": top})
     line["a3_limit"] = 2 * line["prefill32_vs_64"] + 1e-6 * top
+
+    def bf16_kv(cache):
+        layers = dict(cache["layers"])
+        for k in ("k", "v"):
+            layers[k] = layers[k].bfloat16().to(layers[k].dtype)
+        return dict(cache, layers=layers)
+
+    wrong = handoff_route(params, fault=bf16_kv)
+    line["bf16_kv_handoff32_vs_64"] = (wrong.double()
+                                       - step64).abs().max().item()
     emit(line)
+    require(line["bf16_kv_handoff32_vs_64"] > line["a3_limit"],
+            f"{phase}: a handoff through a bf16 cache reads "
+            f"{line['bf16_kv_handoff32_vs_64']}, within the limit")
     require(line["route64_max_abs_diff"] <= 1e-10 * top,
             f"{phase}: in float64 the two routes differ by "
             f"{line['route64_max_abs_diff']}")
@@ -3102,10 +3128,10 @@ def serving_vlm_phase(torch, device="cuda", cfg=None, text=VLM_TEXT,
     eng = GenerationEngine(cfg, params, device=device)
     rec = timed_generation(torch, eng)
     ops.reset_launch_counts()
-    toks, stats = eng.generate(batch, VLM_STEPS + 1, keep_logits=True)
+    toks, _ = eng.generate(batch, VLM_STEPS + 1)
     gen_counts = ops.launch_counts()
-    gen_logits = stats["logits"]
-    del eng, stats
+    gen_logits = rec["logits"]
+    del eng
     gen = {"batch": 2, "n_patches": cfg.n_patches, "text": text,
            "prefill_ms": rec["prefill_s"][0] * 1e3,
            "decode_ms_per_step_median":
@@ -3275,8 +3301,7 @@ def serving_audio_phase(torch, device="cuda", cfg=None,
             rec = timed_generation(torch, eng)
             encodes.clear()
             ops.reset_launch_counts()
-            toks, stats = eng.generate(batch, AUDIO_STEPS + 1,
-                                       keep_logits=True)
+            toks, _ = eng.generate(batch, AUDIO_STEPS + 1)
             counts = ops.launch_counts()
             layers = rec["cache"]["layers"]
             held = sum(layers[k].numel() * layers[k].element_size()
@@ -3296,7 +3321,7 @@ def serving_audio_phase(torch, device="cuda", cfg=None,
                          "launches": counts, "encoder_runs": len(encodes),
                          "cross_kv_bytes_per_session": held,
                          "cross_kv_unchanged": kept})
-            for out in stats["logits"]:
+            for out in rec["logits"]:
                 require(out.shape == (AUDIO_BATCH, cfg.vocab)
                         and bool(np.isfinite(out).all()),
                         f"whisper logits {out.shape} not finite")
@@ -3304,7 +3329,7 @@ def serving_audio_phase(torch, device="cuda", cfg=None,
             require(len(encodes) == 1, f"the encoder ran {len(encodes)} times")
             require(held == cross, f"{held} B of cross K/V a session")
             require(kept, "decode changed the cross K/V")
-            del eng, rec, layers, stats
+            del eng, rec, layers
     finally:
         encdec.encode = real_encode
     peak = torch.cuda.max_memory_allocated() if on_card else None

@@ -30,9 +30,7 @@ class GenerationEngine:
     def generate(self, batch: Dict[str, Any], n_tokens: int,
                  temperature: float = 0.0, seed: int = 0,
                  generator: Optional[torch.Generator] = None,
-                 feed: Optional[np.ndarray] = None,
-                 keep_logits: bool = False,
-                 ) -> Tuple[np.ndarray, Dict[str, Any]]:
+                 ) -> Tuple[np.ndarray, Dict[str, float]]:
         """Greedy (``temperature == 0``) or sampled continuation of
         ``batch["tokens"]`` (B, S).  Sampling draws from ``generator``, or
         from a fresh one seeded with ``seed`` on the engine's device.
@@ -40,11 +38,7 @@ class GenerationEngine:
         The whole batch goes to ``prefill``: a vlm's ``vision_embeds``
         (B, n_patches, D) and ``positions3`` (3, B, n_patches + S), whose
         patches the cache is sized for, or an encoder-decoder's ``frames``
-        (B, enc_seq, d_source).  ``feed`` (n_tokens, B) decodes the given
-        tokens instead of the chosen ones (a replay of another run's feed;
-        the chosen tokens are still returned), and ``keep_logits`` adds
-        the prefill's and every step's logits to the stats as host arrays
-        (``stats["logits"]``, n_tokens of them)."""
+        (B, enc_seq, d_source)."""
         dev = self.device
         inputs = {k: torch.as_tensor(
             v if isinstance(v, torch.Tensor) else np.asarray(v), device=dev)
@@ -56,10 +50,8 @@ class GenerationEngine:
         logits, cache = self.ops.prefill(self.params, self.cfg, inputs, cache)
         if temperature > 0 and generator is None:
             generator = torch.Generator(device=dev).manual_seed(seed)
-        out, kept = [], []
+        out = []
         for i in range(n_tokens):
-            if keep_logits:
-                kept.append(logits.cpu().numpy())
             if temperature > 0:
                 probs = torch.softmax(logits.float() / temperature, dim=-1)
                 tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
@@ -68,11 +60,6 @@ class GenerationEngine:
             tok = tok.to(torch.int32)
             out.append(tok.cpu().numpy())
             if i + 1 < n_tokens:
-                fed = tok if feed is None else torch.as_tensor(
-                    np.asarray(feed[i], np.int32), device=dev)
                 logits, cache = self.ops.decode_step(self.params, self.cfg,
-                                                     fed, cache)
-        stats: Dict[str, Any] = {"generated": n_tokens * B}
-        if keep_logits:
-            stats["logits"] = kept
-        return np.stack(out, axis=1), stats
+                                                     tok, cache)
+        return np.stack(out, axis=1), {"generated": n_tokens * B}

@@ -273,4 +273,5 @@ def test_audio_phases_rehearse_on_the_cpu(monkeypatch):
     hand = by["audio_handoff"]
     assert hand["route64_max_abs_diff"] <= 1e-10 * hand["max_abs_logit64"]
     assert hand["handoff32_vs_64"] <= hand["a3_limit"]
+    assert hand["bf16_kv_handoff32_vs_64"] > hand["a3_limit"]
     assert "seconds" in by["serving_audio_done"]
