@@ -48,7 +48,10 @@ Phases, each printed as one JSON object per line:
    bit-equal, the forward's lse within 1e-5 of the plain version's; timed
    with a cold L2 at minicpm-2b's (B=1, H=36, S=2048, hd=64),
    granite-8b's (H=32, hd=128) and qwen2-moe-a2.7b's (H=16, hd=128)
-   causal shape beside its operations bound,
+   causal shape, and at the training shapes of hymba-1.5b (H=25, hd=64,
+   S=4096 under its 2048 window), qwen2-vl-7b (H=28, hd=128, S=2304) and
+   whisper-small (B=2, H=12, hd=64, S=2048), beside its operations bound
+   (the unmasked pairs only),
    the design's 3xTF32 floor, the plain version and the backward of
    ``scaled_dot_product_attention`` (a yardstick only), and its kernels'
    ptxas registers, spills and shared memory;
@@ -82,7 +85,10 @@ Phases, each printed as one JSON object per line:
    weights: logits must agree and only the card's run launches the
    kernels; then hybrid_parity, gate Y1; then vlm_parity, gate V1; then
    audio_parity, gate A1; then train_parity, gate T2; then
-   moe_train_parity, gate T2m;
+   moe_train_parity, gate T2m; then the CPU runs of gates T2h, T2v and
+   T2a start in a spawned worker process (``t2_cpu_runs``), which the
+   serving phases below, host-bound on one core, leave the other cores
+   to (it takes half of them);
 7. serving  — granite-8b at full width and full depth in fp32 with
    seeded random weights: a ``BatchEngine`` admits 8
    sessions (two 2048-token prompts through the flash kernel, six short
@@ -115,7 +121,9 @@ Phases, each printed as one JSON object per line:
    serving_audio — qwen2-vl-7b released, then whisper-small at full width
    and depth in fp32 (335,106,048 parameters, enc_seq 1500) through
    ``GenerationEngine``, under gate A2, gate A3's handoff, a profile of 2
-   decode steps, and ``launch.serve.main`` once;
+   decode steps, and ``launch.serve.main`` once; then
+   hybrid_train_parity, vlm_train_parity and audio_train_parity: the
+   card runs of gates T2h, T2v and T2a, held to the worker's CPU runs;
 10. training — whisper-small released, then minicpm-2b at full width and
    depth in fp32 (2.72 B parameters, AdamW) trained 4 steps at B=1,
    S=2048 through ``repro_torch.launch.train.main``, every layer's
@@ -127,9 +135,22 @@ Phases, each printed as one JSON object per line:
    through the router kernel forward and the gating backward kernel
    backward; its dropped share per layer, peak memory, a step's forward,
    backward and optimizer ms and tokens/s, and whether two gradient
-   passes from one state agree to the bit;
+   passes from one state agree to the bit; then hybrid_training,
+   vlm_training and audio_training, each model released before the
+   next: hymba-1.5b at full width and depth (1,644,856,000 parameters)
+   trained 4 steps at B=1, S=4096 through ``launch.train.main``, its Mamba
+   chunks recomputed in the backward (gate T3h); qwen2-vl-7b at full width
+   cut to 4 layers (2,022,211,072 parameters), B=1, 256 patch embeddings
+   + 2048 text tokens (gate T3v), and whisper-small at full width and
+   depth (335,106,048 parameters), B=2, frames of (2, 1500, 768), S=2048
+   (gate T3a), each 4 steps through the port's ``Trainer``: launches,
+   peak memory beside its prediction, a step's forward, backward and
+   optimizer ms;
 11. checkpoint — gate C1 on two small trees held on the card; then,
-   everything before released, minicpm-2b trained at full width for 2
+   everything before released, minicpm-2b at full width cut to
+   ``CKPT_LAYERS`` = 6 of its 40 layers (``cut_depth``: the registry's
+   config, so the launchers build it too; the checkpoint, mesh and fleet
+   phases' seconds scale with the tree's bytes) trained for 2
    steps, saved with ``save_local`` into a temporary directory, loaded
    back onto the card and served, under gates C2-C5; the file's bytes,
    the save split into the encode, the copy from the card and the write,
@@ -150,8 +171,8 @@ Phases, each printed as one JSON object per line:
    smoke's seconds so far;
 13. fleet — the trained tree released, the port's serving fleet over its
    mesh on the tree gate M2 fetched onto the card, under gates F1-F3:
-   ``serve_fleet`` of minicpm-2b as 2 pipeline shards (layers 0-19 and
-   20-39) x 2 replicas, 4 slots each, on four of six peers behind NATs,
+   ``serve_fleet`` of the cut minicpm-2b as 2 pipeline shards (layers
+   0-2 and 3-5) x 2 replicas, 4 slots each, on four of six peers behind NATs,
    all four engines on the card and sharing the tree's storage, each
    shard's parameters published as its own checkpoint DAG; a
    ``ShardClient`` on another peer generates 16 greedy tokens for each of
@@ -371,6 +392,49 @@ them:
   lists all six kernels (M4, F4 and D6 name the five of their time; the
   gating backward is the sixth).
 
+The training bounds of the hybrid, vlm and audio archs, fixed before
+this script's first run of them:
+
+* T1, extended: ``FLASH_BWD_CASES`` rows ``hymba_window2048`` (B=1, H=25,
+  S=4096, causal, window 2048, hd=64), ``qwen2vl_2304`` (B=1, H=28,
+  S=2304, causal, hd=128) and ``whisper_B2`` (B=2, H=12, S=2048, causal,
+  hd=64) under T1's bound as written.  Each is timed beside its bound
+  (operations over the unmasked pairs: 6,292,480 of hymba's 8,390,656
+  causal pairs a head) and the backward of SDPA (with the boolean window
+  mask for hymba's).
+* T2h, T2v, T2a, T2's form on the reduced configs that Y1, V1 and A1
+  serve (``T2_ARCHS``: hymba L=4, d=256, window 64, ssm_state 8; qwen2-vl
+  L=4, d=256, 16 patches on a 4 x 4 grid before 2032 text tokens;
+  whisper L=2, enc_layers 2, enc_seq 64, d=256), B=2, S=2048, card fp32
+  vs CPU fp32 and float64, micro-batches 1 and 2, three steps from one
+  state and one batch stream: each step's loss and grad norm, and step
+  1's gradient leaves (each over its leaf's largest |cpu64| entry),
+  max|card32 - cpu64| <= max(1e-4, 2 max|cpu32 - cpu64|).  The card
+  launches ``flash_attention`` and ``flash_attention_bwd`` L x mb x 3
+  times each, nothing else; the CPU runs launch nothing.
+* T3h, hymba-1.5b at full width and depth, fp32, B=1, S=4096 (the window
+  masks a quarter of the causal pairs), 4 steps through
+  ``launch.train.main``: every loss and grad norm finite;
+  ``flash_attention`` and ``flash_attention_bwd`` launched exactly 32 x 4
+  times each, nothing else; on one more gradient pass, every leaf finite
+  and not all zero, and every layer-stacked leaf (``A_log``, ``dt_bias``,
+  ``D_skip`` and ``conv_w`` of the Mamba branch among them) nonzero in
+  every layer.  The peak is printed beside its prediction (66 GB).
+* T3v, qwen2-vl-7b at full width cut to 4 layers (2,022,211,072
+  parameters, recounted), fp32, B=1, 256 patches on a 16 x 16 grid + 2048
+  text tokens (S=2304), 4 steps through ``Trainer``: T3h's checks, with
+  flash and its backward 4 x 4 times each.
+* T3a, whisper-small at full width and depth (335,106,048 parameters),
+  fp32, B=2, frames ~ N(0, 1) of (2, 1500, 768), decoder S=2048, 4 steps
+  through ``Trainer``: T3h's checks, with flash and its backward 12 x 4
+  times each (the encoder and cross-attention launch none), and every
+  encoder leaf nonzero in every layer.
+* T4: every earlier gate passes as written; the serving gates Y1-Y4,
+  V1-V4 and A1-A4 show that the Mamba loop without grad did not move.
+  The checkpoint, mesh and fleet gates run at ``CKPT_LAYERS`` layers in
+  their form and with their limits, every one exact; C1's and M1's
+  golden trees are the reduced ones they were.
+
 The checkpoint format's bounds, fixed before this script's first run of
 them (every one exact):
 
@@ -382,7 +446,9 @@ them (every one exact):
   ``params_to_bytes(tree)`` and (fp32) of ``params_to_bytes(tree,
   quant="int8_block")`` equal ``CKPT_GOLDEN``, which the JAX package
   computed on the CPU.
-* C2, full width: minicpm-2b, fp32, B=1, S=2048, 2 steps through the
+* C2, full width (cut to ``CKPT_LAYERS`` layers since the hybrid, vlm
+  and audio archs train in the smoke): minicpm-2b, fp32, B=1, S=2048, 2
+  steps through the
   ``Trainer`` that ``launch.train.run`` builds; saved by the
   ``save_local`` call ``--save`` makes; the optimizer moments freed;
   ``load_local(path, like=<a fresh init on the card>)``: every leaf on
@@ -530,6 +596,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1041,7 +1108,10 @@ FLASH_BWD_CASES = [("minicpm", 1, 36, 2048, 2048, True, 0, 64),
                    ("noncausal", 1, 32, 128, 2048, False, 0, 128),
                    ("noncausal_ragged", 1, 8, 65, 97, False, 0, 64),
                    ("window17_sq97_sk300", 2, 4, 97, 300, True, 17, 128),
-                   ("qwen2_moe", 1, 16, 2048, 2048, True, 0, 128)]
+                   ("qwen2_moe", 1, 16, 2048, 2048, True, 0, 128),
+                   ("hymba_window2048", 1, 25, 4096, 4096, True, 2048, 64),
+                   ("qwen2vl_2304", 1, 28, 2304, 2304, True, 0, 128),
+                   ("whisper_B2", 2, 12, 2048, 2048, True, 0, 64)]
 
 
 def flash_bwd_inputs(torch, B, H, Sq, Sk, hd, causal, window, g):
@@ -1112,28 +1182,38 @@ def flash_backward_phase(torch, flush, build_log: str):
                 f"T1 {name}: lse err {res['lse_abs_err']} > 1e-5")
         cases[name] = res
 
-    def timed(B, H, S, hd):
-        """Kernel, plain and SDPA-backward times at a causal S, and the
-        bound: the backward's five products over the visible pairs at the
-        TF32 peak, against its bytes (q, k, v, out, dO, lse read, dq, dk,
-        dv written); beside it the design's own floor, its 7 products a
-        pair (S and dP in both passes) in 3xTF32 at the TF32 peak."""
-        args = flash_bwd_inputs(torch, B, H, S, S, hd, True, 0, g)
-        pairs = B * H * (S * (S + 1) // 2)
+    def timed(B, H, S, hd, window=0):
+        """Kernel, plain and SDPA-backward times at a causal S (under a
+        sliding ``window``: SDPA with the same boolean mask), and the
+        bound: the backward's five products over the unmasked pairs at
+        the TF32 peak, against its bytes (q, k, v, out, dO, lse read, dq,
+        dk, dv written); beside it the design's own floor, its 7 products
+        a pair (S and dP in both passes) in 3xTF32 at the TF32 peak."""
+        args = flash_bwd_inputs(torch, B, H, S, S, hd, True, window, g)
+        pairs = B * H * (sum(min(i + 1, window) for i in range(S)) if window
+                         else S * (S + 1) // 2)
         flops = 10 * hd * pairs
         nbytes = 4 * (8 * B * H * S * hd + B * H * S)
+        kw = {"causal": True, "window": window}
         qs, ks, vs = (a.detach().requires_grad_(True) for a in args[:3])
-        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        if window:
+            i = torch.arange(S, device="cuda")
+            keep = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+            o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
+        else:
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
         res = {"kernel_ms": time_ms(
-            torch, lambda: fa.flash_attention_bwd_cuda(*args), flush=flush),
+            torch, lambda: fa.flash_attention_bwd_cuda(*args, **kw),
+            flush=flush),
             "plain_ms": time_ms(
-                torch, lambda: fa.flash_attention_bwd_plain(*args), iters=5,
-                flush=flush),
+                torch, lambda: fa.flash_attention_bwd_plain(*args, **kw),
+                iters=5, flush=flush),
             "library_ms": time_ms(
                 torch, lambda: torch.autograd.grad(o, (qs, ks, vs), args[5],
                                                    retain_graph=True),
                 flush=flush),
-            "flops": flops, "bytes": nbytes,
+            "pairs": pairs, "flops": flops, "bytes": nbytes,
             "bound_3xtf32_ms": 3 * 7 * 2 * hd * pairs / PEAK_FLOPS["float32"]
             * 1e3,
             "bound_ms": max(flops / PEAK_FLOPS["float32"],
@@ -1153,6 +1233,12 @@ def flash_backward_phase(torch, flush, build_log: str):
            "t1_ratio": max(c["t1_ratio"] for c in cases.values()),
            "minicpm": timed(1, 36, 2048, 64), "granite": timed(1, 32, 2048, 128),
            "qwen2_moe": timed(1, 16, 2048, 128),
+           # the training shapes of hymba-1.5b (H=25 under its 2048
+           # window at S=4096), qwen2-vl-7b (256 patches + 2048 text) and
+           # whisper-small's decoder (B=2)
+           "hymba_window2048": timed(1, 25, 4096, 64, window=2048),
+           "qwen2vl_2304": timed(1, 28, 2304, 128),
+           "whisper_B2": timed(2, 12, 2048, 64),
            "ptxas": flash_bwd_ptxas(build_log),
            "dynamic_smem_bytes": {f"hd{d}": {"dkdv": smem(d, 0), "dq": smem(d, 1)}
                                   for d in (64, 128)}}
@@ -2074,7 +2160,7 @@ def train_parity_phase(torch):
     from repro_torch.kernels import ops
     from repro_torch.optim import constant_schedule
     from repro_torch.tree import leaves
-    from repro_torch.params import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.params import train_state_to_numpy
     from repro_torch.train import make_train_step, train_state_init
 
     cfg = get_config("minicpm-2b").reduced(**T2_REDUCED)
@@ -2089,10 +2175,7 @@ def train_parity_phase(torch):
         for name, dev, dt in (("card32", "cuda", np.float32),
                               ("cpu32", "cpu", np.float32),
                               ("cpu64", "cpu", np.float64)):
-            state = train_state_from_numpy(base._replace(
-                params=_cast_tree(base.params, dt), opt=type(base.opt)(
-                    base.opt.step, _cast_tree(base.opt.mu, dt),
-                    _cast_tree(base.opt.nu, dt))), dev)
+            state = t2_state(base, dt, dev)
             require(leaves(state.params)[0].dtype == torch.as_tensor(
                 np.zeros(1, dt)).dtype, f"{name} is not {dt}")
             step = make_train_step(cfg, constant_schedule(1e-3),
@@ -2117,15 +2200,7 @@ def train_parity_phase(torch):
                 f"{want}")
         require(not any(c32[2].values()) and not any(c64[2].values()),
                 f"T2 mb={mb}: the CPU runs launched kernels")
-        grad_ratio = []
-        for a, b, c in zip(card[0], c32[0], c64[0]):
-            scale = c.abs().max().item()
-            err = (a - c).abs().max().item() / scale
-            bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
-            grad_ratio.append(err / bound)
-        step_ratio = [[abs(a - c) / max(1e-4, 2 * abs(b - c))
-                       for a, b, c in zip(x, y, z)]
-                      for x, y, z in zip(card[1], c32[1], c64[1])]
+        grad_ratio, step_ratio = t2_ratios(card, c32, c64)
         out[f"mb{mb}"] = {
             "loss_grad_norm": {k: runs[k][1] for k in runs},
             "grad_leaf_ratio_to_bound_max": max(grad_ratio),
@@ -2231,7 +2306,7 @@ def moe_train_parity_phase(torch, device="cuda"):
     from repro_torch.data import make_batch_iterator
     from repro_torch.kernels import ops
     from repro_torch.optim import constant_schedule
-    from repro_torch.params import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.params import train_state_to_numpy
     from repro_torch.train import make_train_step, train_state_init
     from repro_torch.tree import leaves
 
@@ -2249,10 +2324,7 @@ def moe_train_parity_phase(torch, device="cuda"):
         for name, dev, dt in (("card32", device, np.float32),
                               ("cpu32", "cpu", np.float32),
                               ("cpu64", "cpu", np.float64)):
-            state = train_state_from_numpy(base._replace(
-                params=_cast_tree(base.params, dt), opt=type(base.opt)(
-                    base.opt.step, _cast_tree(base.opt.mu, dt),
-                    _cast_tree(base.opt.nu, dt))), dev)
+            state = t2_state(base, dt, dev)
             step = make_train_step(cfg, constant_schedule(1e-3),
                                    microbatches=mb)
             if name == "card32":
@@ -2307,15 +2379,7 @@ def moe_train_parity_phase(torch, device="cuda"):
         by_pass_layer = [[sum(drops[p * mb * L + m * L + j] for m in range(mb))
                           for j in range(L)] for p in range(1 + T2_STEPS)]
         require(max(drops) > 0, f"T2m mb={mb}: no token dropped")
-        grad_ratio = []
-        for a, b, c in zip(card[0], c32[0], c64[0]):
-            scale = c.abs().max().item()
-            err = (a - c).abs().max().item() / scale
-            bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
-            grad_ratio.append(err / bound)
-        step_ratio = [[abs(a - c) / max(1e-4, 2 * abs(b - c))
-                       for a, b, c in zip(x, y, z)]
-                      for x, y, z in zip(card[1], c32[1], c64[1])]
+        grad_ratio, step_ratio = t2_ratios(card, c32, c64)
         out[f"mb{mb}"] = {
             "loss_aux_grad_norm": {k: runs[k][1] for k in runs},
             "grad_leaf_ratio_to_bound_max": max(grad_ratio),
@@ -2336,6 +2400,193 @@ def moe_train_parity_phase(torch, device="cuda"):
           f"{cfg.d_exp}, capacity_factor={cfg.capacity_factor})",
           "batch": 2, "seq": S, "steps": T2_STEPS, **out})
     return out
+
+
+#: T2h, T2v, T2a: arch -> (its reduced config, as Y1, V1 and A1 serve it;
+#: text tokens at S=2048: qwen2-vl's 16 patches + 2032)
+T2_ARCHS = {"hymba-1.5b": ("T2h", HYBRID_REDUCED, 2048),
+            "qwen2-vl-7b": ("T2v", VLM_REDUCED, 2032),
+            "whisper-small": ("T2a", {}, 2048)}
+
+
+def train_batches(cfg, n_text, B, seed):
+    """``launch.train``'s batch stream (tokens and labels) for ``cfg``,
+    each batch with its arch's stub inputs as ``stub_batch`` draws them:
+    for vlm ``n_patches`` patch embeddings ~ N(0, 1) on a square grid of
+    ``positions3`` before the text, for audio frames ~ N(0, 1)."""
+    from repro_torch.data import make_batch_iterator
+
+    for i, batch in enumerate(make_batch_iterator(cfg.vocab, n_text, B,
+                                                  seed=seed)):
+        extra = stub_batch(cfg, n_text, B, seed + 1 + i)
+        del extra["tokens"]
+        yield {**batch, **extra}
+
+
+def t2_inputs(torch, arch, n_text=None, cfg=None):
+    """Gate T2h's, T2v's or T2a's config, its numpy start state and its
+    ``T2_STEPS`` batches (B=2) of ``n_text`` text tokens from
+    ``train_batches``."""
+    from repro_torch.configs import get_config
+    from repro_torch.params import train_state_to_numpy
+    from repro_torch.train import train_state_init
+
+    _, reduced, text = T2_ARCHS[arch]
+    cfg = cfg or get_config(arch).reduced(**reduced)
+    base = train_state_to_numpy(
+        train_state_init(cfg, torch.Generator().manual_seed(7), "cpu"))
+    data = train_batches(cfg, text if n_text is None else n_text, 2, seed=7)
+    return cfg, base, [next(data) for _ in range(T2_STEPS)]
+
+
+def t2_run(torch, cfg, base, batches, mb, dtype, device):
+    """One run of a T2-form gate: ``base`` cast to ``dtype`` on
+    ``device``, then a step per batch through ``make_train_step``'s
+    ``grads_of`` and ``update`` (so step 1's gradients are the step's
+    own).  Returns (step 1's gradient leaves as float64 numpy arrays,
+    [(loss, grad norm)] per step, the launch counts of the run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import constant_schedule
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves
+
+    state = t2_state(base, dtype, device)
+    step = make_train_step(cfg, constant_schedule(1e-3), microbatches=mb)
+    ops.reset_launch_counts()
+    first, hist = None, []
+    for b in batches:
+        loss, m, grads = step.grads_of(state.params, {
+            k: torch.as_tensor(v, device=device) for k, v in b.items()})
+        if first is None:
+            # a copy: the update clips the gradients in place, and a
+            # float64 leaf on the CPU is its own .double().cpu()
+            first = [g.double().cpu().numpy().copy() for g in leaves(grads)]
+        state, m = step.update(state, loss, m, grads)
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+        del grads
+    return first, hist, ops.launch_counts()
+
+
+def t2_cpu_runs(cfg, base, batches, threads=None):
+    """The CPU runs of a T2-form gate, fp32 and float64 at 1 and 2
+    micro-batches: {(name, mb): ``t2_run``'s result}.  The smoke runs them
+    in a spawned worker (``spawn_pool``) while the card serves, with
+    ``threads`` intra-op threads."""
+    import numpy as np
+    import torch
+
+    import repro_torch  # noqa: F401  (turns TF32 off, as the smoke does)
+
+    if threads:
+        torch.set_num_threads(threads)
+    return {(name, mb): t2_run(torch, cfg, base, batches, mb, dt, "cpu")
+            for mb in (1, 2)
+            for name, dt in (("cpu32", np.float32), ("cpu64", np.float64))}
+
+
+@contextlib.contextmanager
+def spawn_pool():
+    """One spawned worker process, terminated when the block ends,
+    whatever happens."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        yield pool
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def arch_train_parity_phase(torch, arch, device="cuda", n_text=None,
+                            cfg=None, cpu_runs=None):
+    """Gates T2h, T2v, T2a: T2's form on the reduced config of ``arch``
+    that Y1, V1 or A1 serves, B=2, S=2048 (qwen2-vl: 16 patches + 2032
+    text tokens), from one state and one batch stream (``t2_inputs``),
+    with 1 and 2 micro-batches, on the card in fp32 and on the CPU in fp32
+    and float64: three steps, each through ``make_train_step``'s
+    ``grads_of`` then its ``update``; step 1's gradient leaves (each over
+    its leaf's largest |cpu64| entry) and each step's loss and grad norm
+    within max(1e-4, 2 max|cpu32 - cpu64|) of cpu64.  The card launches
+    the flash forward and backward once per (decoder) layer per
+    micro-batch per step, L x mb x 3 each, nothing else; the CPU runs
+    launch nothing.  ``cpu_runs`` is ``t2_cpu_runs`` of the same inputs,
+    computed elsewhere (the smoke's worker), else here.  ``device="cpu"``
+    with a short ``n_text`` (and a narrower ``cfg``) rehearses it on the
+    CPU."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    gate = T2_ARCHS[arch][0]
+    cfg, base, batches = t2_inputs(torch, arch, n_text, cfg)
+    require(device == "cpu" or cfg.hd == 64,
+            f"{gate}: reduced head dim {cfg.hd}")
+    L = cfg.n_layers
+    seq = batches[0]["tokens"].shape[1] + (cfg.n_patches if cfg.arch == "vlm"
+                                           else 0)
+    if cpu_runs is None:
+        cpu_runs = t2_cpu_runs(cfg, base, batches)
+    out = {}
+    for mb in (1, 2):
+        runs = {"card32": t2_run(torch, cfg, base, batches, mb, np.float32,
+                                 device)}
+        runs.update((name, cpu_runs[(name, mb)]) for name in ("cpu32",
+                                                               "cpu64"))
+        card, c32, c64 = ((list(map(torch.from_numpy, runs[k][0])),
+                           *runs[k][1:]) for k in ("card32", "cpu32", "cpu64"))
+        want = {k: 0 for k in card[2]}
+        if device == "cuda":
+            want["flash_attention"] = L * mb * T2_STEPS
+            want["flash_attention_bwd"] = want["flash_attention"]
+        require(card[2] == want, f"{gate} mb={mb} card launches {card[2]} "
+                f"!= {want}")
+        require(not any(c32[2].values()) and not any(c64[2].values()),
+                f"{gate} mb={mb}: the CPU runs launched kernels")
+        grad_ratio, step_ratio = t2_ratios(card, c32, c64)
+        out[f"mb{mb}"] = {
+            "loss_grad_norm": {k: runs[k][1] for k in runs},
+            "grad_leaf_ratio_to_bound_max": max(grad_ratio),
+            "step_ratio_to_bound": step_ratio, "launches_cuda": card[2]}
+        require(max(grad_ratio) <= 1.0,
+                f"gate {gate} fails: mb={mb} gradient leaves {grad_ratio}")
+        require(max(max(r) for r in step_ratio) <= 1.0,
+                f"gate {gate} fails: mb={mb} loss / grad norm {step_ratio}")
+    line = {"phase": f"{cfg.arch}_train_parity", "gate": gate,
+            "config": f"{arch} reduced(L={L}, d={cfg.d_model}, "
+            f"H={cfg.n_heads}, Hk={cfg.n_kv_heads}, hd={cfg.hd}, "
+            f"window={cfg.window}, vocab={cfg.vocab})", "device": device,
+            "batch": 2, "seq": seq, "steps": T2_STEPS, **out,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def t2_state(base, dtype, device):
+    """The numpy train state ``base`` cast to ``dtype`` (its params and
+    both moments) on ``device``."""
+    from repro_torch.params import train_state_from_numpy
+
+    return train_state_from_numpy(base._replace(
+        params=_cast_tree(base.params, dtype), opt=type(base.opt)(
+            base.opt.step, _cast_tree(base.opt.mu, dtype),
+            _cast_tree(base.opt.nu, dtype))), device)
+
+
+def t2_ratios(card, c32, c64):
+    """T2's readings over its bound, for runs (step 1's gradient leaves,
+    each step's metrics, ...): each leaf's max|card32 - cpu64| over
+    max(1e-4, 2 max|cpu32 - cpu64|), both over the leaf's largest |cpu64|
+    entry; each step metric's the same without the scale."""
+    grad_ratio = []
+    for a, b, c in zip(card[0], c32[0], c64[0]):
+        scale = c.abs().max().item()
+        err = (a - c).abs().max().item() / scale
+        bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
+        grad_ratio.append(err / bound)
+    step_ratio = [[abs(a - c) / max(1e-4, 2 * abs(b - c))
+                   for a, b, c in zip(x, y, z)]
+                  for x, y, z in zip(card[1], c32[1], c64[1])]
+    return grad_ratio, step_ratio
 
 
 def _cast_tree(tree, dtype):
@@ -3512,6 +3763,134 @@ def training_phase(torch):
     return counts, timings[-1]
 
 
+#: T3h, T3v, T3a: arch -> (gate, batch, text tokens, layers kept or None
+#: for full depth, parameters in the tree, predicted peak bytes).  qwen2-vl
+#: keeps 4 of its 28 layers (7,615,487,488 less 24 x 233,053,184
+#: parameters; all 28 with AdamW would need 122 GB); its text follows 256
+#: patches (S=2304).  The peaks: parameters, gradients and two AdamW
+#: moments at 16 B a parameter, plus the activations the backward keeps
+#: and the logits (``scripts/hymba_block_saved_bytes.py`` for hymba's).
+T3_ARCHS = {"hymba-1.5b": ("T3h", 1, 4096, None, 1_644_856_000, 66e9),
+            "qwen2-vl-7b": ("T3v", 1, 2048, 4, 2_022_211_072, 41e9),
+            "whisper-small": ("T3a", 2, 2048, None, 335_106_048, 24e9)}
+#: the layer-stacked subtrees of a decoder and an encoder-decoder
+STACKED = ("blocks.", "enc_blocks.", "dec_blocks.")
+
+
+def arch_training_phase(torch, arch, device="cuda", cfg=None, n_text=None):
+    """Gates T3h, T3v, T3a: ``arch`` at full width (qwen2-vl cut to 4
+    layers), fp32, ``TRAIN_STEPS`` steps with ``launch.train``'s cosine
+    schedule: hymba-1.5b through ``launch.train.main`` (B=1, S=4096: text
+    batches, as JAX's launcher draws); qwen2-vl-7b (B=1, 256 patches on a
+    16 x 16 grid + 2048 text tokens) and whisper-small (B=2, frames of
+    (2, 1500, 768), S=2048) through the port's ``Trainer`` over
+    ``train_batches``.  Every loss and grad norm finite; the flash
+    forward and backward launched once per (decoder) layer per step, L x
+    4 each, nothing else (whisper's encoder and cross-attention launch
+    none).  Then one more gradient pass: the tree holds the parameters
+    the arch's line of ``T3_ARCHS`` says; every gradient leaf finite and
+    not all zero, and every layer-stacked leaf (the Mamba branch's
+    ``A_log``, ``dt_bias``, ``D_skip`` and ``conv_w``, whisper's encoder)
+    nonzero in every layer; and one more step timed in its forward,
+    backward and optimizer parts.  The peak is printed beside its
+    prediction.  ``device`` and a reduced ``cfg`` (with a short
+    ``n_text``) rehearse it on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.train import make_schedule
+    from repro_torch.train import Trainer, make_train_step, train_state_init
+    from repro_torch.tree import leaves
+
+    gate, B, text, layers, n_want, peak_want = T3_ARCHS[arch]
+    full = get_config(arch)
+    cfg = cfg or (dataclasses.replace(full, n_layers=layers) if layers
+                  else full)
+    L = cfg.n_layers
+    n_text = text if n_text is None else n_text
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if cfg.arch == "hybrid":
+        argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+                str(B), "--seq", str(n_text)]
+        if not on_card:
+            argv += ["--reduced", "--device", device, "--layers", str(L),
+                     "--d-model", str(cfg.d_model), "--vocab",
+                     str(cfg.vocab)]
+        hist = launch_train.main(argv)
+        state = None
+    else:
+        gen = torch.Generator(device=device).manual_seed(34)
+        trainer = Trainer(cfg, train_state_init(cfg, gen, device),
+                          make_schedule("cosine", 3e-3, TRAIN_STEPS),
+                          train_batches(cfg, n_text, B, seed=34))
+        hist = trainer.run(TRAIN_STEPS, log=None)
+        state = trainer.state
+        del trainer
+    sync()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    want = {k: 0 for k in counts}
+    if on_card:
+        want["flash_attention"] = want["flash_attention_bwd"] = \
+            L * TRAIN_STEPS
+    series = {k: [h[k] for h in hist] for k in ("loss", "grad_norm")}
+    require(len(hist) == TRAIN_STEPS, f"{gate}: {len(hist)} steps recorded")
+    require(all(math.isfinite(x) for v in series.values() for x in v),
+            f"{gate}: non-finite loss or grad norm {series}")
+    require(counts == want, f"{gate} launches {counts} != {want}")
+
+    if state is None:
+        # launch.train's trainer is gone: a fresh state for the pass
+        if on_card:
+            release(torch, f"{gate}'s gradient pass")
+        state = train_state_init(
+            cfg, torch.Generator(device=device).manual_seed(1), device)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    require(not on_card or n_params == n_want,
+            f"{gate}: {n_params} parameters, want {n_want}")
+    data = train_batches(cfg, n_text, B, seed=1)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in next(data).items()}
+    step = make_train_step(cfg, make_schedule("cosine", 3e-3, TRAIN_STEPS))
+    _, _, grads = step.grads_of(state.params, batch)
+    del batch
+    bad = {}
+    for name, g in named_leaves(grads):
+        # a layer-stacked leaf must be nonzero in every layer
+        alive = (g.flatten(1).ne(0).any(1) if name.startswith(STACKED)
+                 else g.ne(0).any()[None])
+        finite = bool(torch.isfinite(g).all())
+        if not finite or not bool(alive.all()):
+            bad[name] = {"finite": finite,
+                         "zero_layers": (~alive).nonzero().flatten().tolist()}
+    del grads
+    require(not bad, f"{gate}: gradient leaves not finite or zero in a "
+            f"layer: {bad}")
+
+    # one timed step: hymba's takes 8-13 s, most of it host launches
+    state, timings = timed_steps(torch, cfg, state, data, device, n=1)
+    seq = n_text + (cfg.n_patches if cfg.arch == "vlm" else 0)
+    emit({"phase": f"{cfg.arch}_training", "gate": gate, "model": cfg.name,
+          "reduced": ({"n_layers": [full.n_layers, L]}
+                      if L != full.n_layers else None),
+          "d_model": cfg.d_model, "params": n_params, "batch": B, "seq": seq,
+          "steps": TRAIN_STEPS, **series, "launches": counts,
+          "main_wall_s": wall_s,
+          "main_tokens_per_s": TRAIN_STEPS * B * seq / wall_s,
+          "max_memory_allocated_bytes": peak,
+          "max_memory_allocated_bytes_predicted": peak_want if on_card
+          else None, "timed_steps": timings,
+          "nvidia_smi": nvidia_smi() if on_card else None})
+    del state
+    return counts, timings[-1]
+
+
 #: T3m: qwen2-moe-a2.7b at full width cut to this many of its 24 layers
 #: (all 24 with AdamW would need 229 GB; 4 take 46.5 GB of state)
 T3M_LAYERS = 4
@@ -3795,8 +4174,30 @@ CKPT_GOLDEN = {
 }
 CKPT_GOLDEN_SEED = 24
 CKPT_TRAIN_STEPS = 2
+#: gates C2-C5, M2-M3 and F1-F3 run minicpm-2b at full width with its
+#: depth cut to this many of its 40 layers (2.60 of the 10.9 GB; most of
+#: those phases' seconds scale with the tree's bytes), so that the smoke
+#: has room for training the hybrid, vlm and audio archs
+CKPT_LAYERS = 6
 CKPT_PROMPTS = [2048, 300, 64, 12]
 CKPT_STEPS = 16
+
+
+@contextlib.contextmanager
+def cut_depth(arch, n_layers):
+    """While the block runs, ``get_config(arch)`` (so every launcher)
+    gives ``arch`` at full width cut to ``n_layers`` layers."""
+    import importlib
+
+    from repro_torch import configs
+
+    mod = importlib.import_module(f"repro_torch.configs.{configs._MODULES[arch]}")
+    full = mod.CONFIG
+    mod.CONFIG = dataclasses.replace(full, n_layers=n_layers)
+    try:
+        yield mod.CONFIG
+    finally:
+        mod.CONFIG = full
 
 
 def golden_numpy_tree(like, seed=CKPT_GOLDEN_SEED):
@@ -4422,7 +4823,8 @@ def mesh_phase(torch, trained, trained_entries, t_main, device="cuda",
 # ------------------------------------------------------------------ fleet
 
 #: the serving fleet's seed, its name, and its shape: 2 shards (layers
-#: 0-19 and 20-39 of minicpm-2b) x 2 replicas, 4 slots each
+#: 0-2 and 3-5 of minicpm-2b cut to ``CKPT_LAYERS``) x 2 replicas, 4 slots
+#: each
 FLEET_SEED = 27
 FLEET_NAME = "fleet"
 FLEET_SHARDS = 2
@@ -5333,33 +5735,51 @@ def main() -> int:
     audio_parity_phase(torch)
     train_parity_phase(torch)
     moe_train_parity_phase(torch)
-    counts = serving_phase(torch, "granite-8b", "serving")
-    # granite-8b's 33 GB, qwen2-moe-a2.7b's 57 GB and xlstm-1.3b's 23 GB do
-    # not fit one card together: everything of one model must be gone
-    # before the next
-    release(torch, "serving_moe")
-    moe_counts = serving_phase(torch, "qwen2-moe-a2.7b", "serving_moe")
-    release(torch, "serving_xlstm")
-    xlstm_counts = serving_xlstm_phase(torch)
-    release(torch, "serving_hybrid")
-    serving_hybrid_phase(torch)
-    release(torch, "serving_vlm")
-    serving_vlm_phase(torch)
-    release(torch, "serving_audio")
-    serving_audio_phase(torch)
+    with spawn_pool() as pool:
+        # gates T2h, T2v and T2a: their CPU runs go to a worker while the
+        # card serves (host-bound on one core); the card runs come after
+        t2 = {arch: t2_inputs(torch, arch) for arch in T2_ARCHS}
+        threads = max(1, (os.cpu_count() or 2) // 2)
+        t2_cpu = {arch: pool.apply_async(t2_cpu_runs, (*t2[arch], threads))
+                  for arch in T2_ARCHS}
+        counts = serving_phase(torch, "granite-8b", "serving")
+        # granite-8b's 33 GB, qwen2-moe-a2.7b's 57 GB and xlstm-1.3b's 23
+        # GB do not fit one card together: everything of one model must
+        # be gone before the next
+        release(torch, "serving_moe")
+        moe_counts = serving_phase(torch, "qwen2-moe-a2.7b", "serving_moe")
+        release(torch, "serving_xlstm")
+        xlstm_counts = serving_xlstm_phase(torch)
+        release(torch, "serving_hybrid")
+        serving_hybrid_phase(torch)
+        release(torch, "serving_vlm")
+        serving_vlm_phase(torch)
+        release(torch, "serving_audio")
+        serving_audio_phase(torch)
+        release(torch, "the T2h, T2v and T2a card runs")
+        for arch in T2_ARCHS:
+            # the worker's runs take ~3 minutes and started ~5 before: a
+            # worker that died leaves its result unset, so wait no longer
+            arch_train_parity_phase(torch, arch,
+                                    cpu_runs=t2_cpu[arch].get(timeout=300))
     release(torch, "training")
     train_counts, _ = training_phase(torch)
     release(torch, "moe_training")
     moe_train_counts, _ = moe_training_phase(torch)
+    for arch in T3_ARCHS:
+        release(torch, T3_ARCHS[arch][0])
+        arch_training_phase(torch, arch)
     release(torch, "checkpoint")
-    trained, trained_entries = checkpoint_phase(torch)
-    fetched, reference = mesh_phase(torch, trained, trained_entries, t_main)
-    # the fleet serves the fetched tree: the trained one goes first
-    del trained, trained_entries
-    gc.collect()
-    torch.cuda.empty_cache()
-    fleet_phase(torch, fetched, reference, t_main)
-    del fetched, reference
+    with cut_depth("minicpm-2b", CKPT_LAYERS):
+        trained, trained_entries = checkpoint_phase(torch)
+        fetched, reference = mesh_phase(torch, trained, trained_entries,
+                                        t_main)
+        # the fleet serves the fetched tree: the trained one goes first
+        del trained, trained_entries
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet_phase(torch, fetched, reference, t_main)
+        del fetched, reference
     gc.collect()
     torch.cuda.empty_cache()
     trim_host()

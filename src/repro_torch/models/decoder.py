@@ -221,8 +221,9 @@ def _head(params: Params) -> torch.Tensor:
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits.  Returns (logits (B,S,V), aux_loss).  With
-    ``cfg.remat`` each dense or MoE block is recomputed in the backward
-    instead of keeping its activations, as JAX's ``jax.checkpoint``."""
+    ``cfg.remat`` each dense, MoE, hybrid or vlm block is recomputed in
+    the backward instead of keeping its activations, as JAX's
+    ``jax.checkpoint``."""
     require_ported(cfg)
     x, positions = _embed(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

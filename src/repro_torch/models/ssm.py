@@ -11,6 +11,10 @@ is a multiple of it; one chunk of ``S`` tokens otherwise.  Within a chunk
 the recurrence ``h_t = dA_t h_{t-1} + dBu_t`` is a log-depth doubling
 scan over the sequence axis (:func:`mamba_scan`), where JAX runs
 ``lax.associative_scan``: the same products, added in another order.
+Under autograd each chunk runs through ``torch.utils.checkpoint``, the
+twin of JAX's ``lax.scan(jax.checkpoint(chunk))``: the backward
+recomputes a chunk's (B, W, d_in, N) tensors instead of keeping every
+doubling pass of every chunk, and only ``h`` is kept between chunks.
 
 The mLSTM keeps the three branches of the JAX package's ``run_mlstm``:
 
@@ -34,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .common import dense_init, rms_norm
@@ -120,6 +125,19 @@ def mamba_scan(dA: torch.Tensor, dBu: torch.Tensor,
     return b
 
 
+def _mamba_chunk(dt: torch.Tensor, u: torch.Tensor, B_: torch.Tensor,
+                 C_: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of W tokens from state h0 (B,d_in,N): dt, u (B,W,d_in),
+    B_, C_ (B,W,N).  Returns (the chunk's last h, y (B,W,d_in))."""
+    dA = torch.exp(dt[..., None] * A)                          # (B,W,d,N)
+    dBu = (dt * u)[..., None] * B_[:, :, None, :]
+    h = mamba_scan(dA, dBu, h0)
+    del dA, dBu
+    y = torch.einsum("bsdn,bsn->bsd", h, C_)
+    return h[:, -1].clone(), y        # not a view that keeps h alive
+
+
 def run_mamba(p: Params, cfg: ModelConfig, x: torch.Tensor,
               state: Optional[State] = None,
               ) -> Tuple[torch.Tensor, Optional[State]]:
@@ -148,21 +166,21 @@ def run_mamba(p: Params, cfg: ModelConfig, x: torch.Tensor,
         h_last = dA * h0.to(dA.dtype) + dBu
         y = torch.einsum("bdn,bn->bd", h_last, C_[:, 0])[:, None]
     else:
-        # chunkwise: (dA, dBu) and h live one chunk at a time
+        # chunkwise: (dA, dBu) and h live one chunk at a time; under grad
+        # each chunk is recomputed in the backward (JAX's jax.checkpoint),
+        # so only h crosses between chunks
         W = MAMBA_CHUNK if S % MAMBA_CHUNK == 0 else S
         h_last = (h0.to(dt.dtype) if h0 is not None
                   else dt.new_zeros((B, d_in, N)))
+        remat = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, uf, B_, C_, A, h_last))
         ys = []
         for c0 in range(0, S, W):
             sl = slice(c0, c0 + W)
-            dA = torch.exp(dt[:, sl, :, None] * A)            # (B,W,d,N)
-            dBu = ((dt[:, sl] * uf[:, sl])[..., None]
-                   * B_[:, sl, None, :])
-            h = mamba_scan(dA, dBu, h_last)
-            del dA, dBu
-            ys.append(torch.einsum("bsdn,bsn->bsd", h, C_[:, sl]))
-            h_last = h[:, -1].clone()     # not a view that keeps h alive
-            del h
+            args = (dt[:, sl], uf[:, sl], B_[:, sl], C_[:, sl], A, h_last)
+            h_last, yc = (checkpoint(_mamba_chunk, *args, use_reentrant=False)
+                          if remat else _mamba_chunk(*args))
+            ys.append(yc)
         y = torch.cat(ys, dim=1)
     y = y + p["D_skip"] * uf
     y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]

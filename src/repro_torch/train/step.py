@@ -9,12 +9,18 @@ summed in float32, in slice order.  The lr is read from the schedule at
 the step count before the update, as in JAX.  Parameters and moments are
 updated in place (see :mod:`..optim.adamw`).
 
-The port trains the dense and the MoE decoder.  An MoE config keeps the
-capacity-factor token drops, as the JAX package's training does, and its
-gating differentiates through ``models.moe.RouterGating`` (the router
-kernel forward, the gating backward kernel backward).  xLSTM training
-waits for a backward of the mLSTM kernel (``ops.mlstm_scan``), and M-RoPE
-and sliding windows for their forward ports.
+The port trains every arch the JAX package trains but xLSTM (``ssm``),
+which waits for a backward of the mLSTM kernel (``ops.mlstm_scan``): the
+dense, MoE, hybrid and vlm decoders and the encoder-decoder (audio).  An
+MoE config keeps the capacity-factor token drops, as the JAX package's
+training does, and its gating differentiates through
+``models.moe.RouterGating`` (the router kernel forward, the gating
+backward kernel backward).  Attention of 2048 tokens or more, windowed
+or not, differentiates through ``models.chunked.FlashAttention``; a
+hybrid's Mamba recomputes each chunk in the backward; a vlm batch's
+``vision_embeds`` (B, n_patches, D) and ``positions3`` (3, B, S) and an
+audio batch's ``frames`` (B, enc_seq, d_source) are inputs, split on
+their batch axis under micro-batching.
 """
 
 from __future__ import annotations
@@ -39,14 +45,11 @@ class TrainState(NamedTuple):
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    if cfg.arch not in ("dense", "moe"):
+    if cfg.arch == "ssm":
         raise NotImplementedError(
-            f"training arch {cfg.arch!r} ({cfg.name}) is not ported yet; the "
-            "port trains the dense and MoE decoders")
-    if cfg.mrope or cfg.window > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: training under M-RoPE or a sliding window is not "
-            "ported yet")
+            f"training arch 'ssm' ({cfg.name}) is not ported yet: xLSTM "
+            "training waits for a backward of the mLSTM kernel "
+            "(ops.mlstm_scan)")
 
 
 def train_state_init(cfg: ModelConfig, generator: torch.Generator,
@@ -80,7 +83,8 @@ def make_train_step(cfg: ModelConfig, schedule: Callable[[int], float],
     """Returns ``step(state, batch) -> (state, metrics)``; the state's
     tensors are updated in place.  ``step.grads_of(params, batch)`` is the
     step's first half: (loss, metrics, grads) with grads shaped like
-    params, before clipping."""
+    params, before clipping; ``step.update(state, loss, metrics, grads)``
+    its second: clip, the lr, AdamW."""
     require_trainable(cfg)
     ops = ops_for(cfg)
 
@@ -110,11 +114,9 @@ def make_train_step(cfg: ModelConfig, schedule: Callable[[int], float],
         return (torch.stack(losses).mean(), metrics,
                 unflatten(params, grads))
 
-    def step(state: TrainState, batch: Batch
-             ) -> Tuple[TrainState, Dict[str, Any]]:
-        dev = leaves(state.params)[0].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        loss, metrics, grads = grads_of(state.params, batch)
+    def update(state: TrainState, loss: torch.Tensor,
+               metrics: Dict[str, torch.Tensor], grads: Any
+               ) -> Tuple[TrainState, Dict[str, Any]]:
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         lr = schedule(state.opt.step)
         opt = adamw_update(state.params, grads, state.opt, lr,
@@ -123,5 +125,12 @@ def make_train_step(cfg: ModelConfig, schedule: Callable[[int], float],
         out.update(metrics)
         return TrainState(state.params, opt), out
 
+    def step(state: TrainState, batch: Batch
+             ) -> Tuple[TrainState, Dict[str, Any]]:
+        dev = leaves(state.params)[0].device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        return update(state, *grads_of(state.params, batch))
+
     step.grads_of = grads_of
+    step.update = update
     return step

@@ -41,6 +41,18 @@ MAMBA_TOL = 2e-4
 LOGIT_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and on one thread each this file's small tensor ops do not contend
+    (the reduced hymba's serving rehearsal took 4 s alone, 705 s beside
+    five other test processes, on eight threads each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -379,9 +391,13 @@ def test_decode_across_the_wrap_matches_forward(model):
 
 
 def test_training_still_refuses_hybrid(model):
+    """Kept under its first name: hybrid training is ported
+    (``tests/test_torch_hybrid_train.py``), so ``require_trainable`` now
+    takes the reduced hymba, and refuses xLSTM by name."""
     from repro_torch.train.step import require_trainable
-    with pytest.raises(NotImplementedError):
-        require_trainable(model[2])
+    require_trainable(model[2])
+    with pytest.raises(NotImplementedError, match="'ssm'"):
+        require_trainable(get_config("xlstm-1.3b").reduced())
 
 
 # ------------------------------------------------------------- the engine

@@ -114,12 +114,15 @@ def test_cached_flash_prefill_refuses_a_nonempty_cache(model):
 
 
 def test_other_archs_are_not_ported_yet():
-    """Every arch serves (``tests/test_torch_vlm.py``,
-    ``tests/test_torch_encdec.py``); training of the vlm and audio archs
-    is not ported yet, and ``make_train_step`` refuses both by name."""
+    """Every arch serves, and every arch trains but xLSTM: ``make_train_step``
+    refuses only ``ssm``, by name (xlstm-1.3b), and takes the hybrid, vlm
+    and audio archs (``tests/test_torch_hybrid_train.py``,
+    ``tests/test_torch_audio_vlm_train.py``)."""
     from repro_torch.optim import constant_schedule
     from repro_torch.train.step import make_train_step
-    for arch, name in (("whisper-small", "audio"), ("qwen2-vl-7b", "vlm")):
-        with pytest.raises(NotImplementedError, match=f"'{name}'"):
-            make_train_step(get_config(arch).reduced(),
-                            constant_schedule(1e-3))
+    with pytest.raises(NotImplementedError, match="'ssm'.*xlstm-1.3b"):
+        make_train_step(get_config("xlstm-1.3b").reduced(),
+                        constant_schedule(1e-3))
+    for arch in ("hymba-1.5b", "qwen2-vl-7b", "whisper-small"):
+        assert callable(make_train_step(get_config(arch).reduced(),
+                                        constant_schedule(1e-3)))

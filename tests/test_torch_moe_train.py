@@ -84,6 +84,18 @@ PARAM_TOL_LR = 1e-2
 MOE_KW = {"n_experts": 8, "moe_top_k": 2, "capacity_factor": 1.0}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and on one thread each this file's small tensor ops do not contend
+    (the reduced hymba's serving rehearsal took 4 s alone, 705 s beside
+    five other test processes, on eight threads each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.asarray(x))
 

@@ -28,6 +28,18 @@ from repro_torch.serving import (BatchEngine, GenerationEngine, ShardModule,
 LOGIT_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and on one thread each this file's small tensor ops do not contend
+    (the reduced hymba's serving rehearsal took 4 s alone, 705 s beside
+    five other test processes, on eight threads each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs():
     kw = dict(n_layers=4, d_model=64, vocab=256)
     return (jax_get_config("granite-8b").reduced(**kw),

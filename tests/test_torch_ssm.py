@@ -62,6 +62,18 @@ def _log_sigmoid(x):
     return -np.logaddexp(0.0, -x)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and on one thread each this file's small tensor ops do not contend
+    (the reduced hymba's serving rehearsal took 4 s alone, 705 s beside
+    five other test processes, on eight threads each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scan_inputs(B, H, S, hd, seed):
     """The JAX kernel test's distributions: k pre-scaled by 1/sqrt(hd),
     log f = log_sigmoid(N(0,1) + 2)."""

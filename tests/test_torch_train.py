@@ -67,6 +67,18 @@ STEP_RTOL = 1e-5
 PARAM_TOL_LR = 1e-2
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and on one thread each this file's small tensor ops do not contend
+    (the reduced hymba's serving rehearsal took 4 s alone, 705 s beside
+    five other test processes, on eight threads each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.asarray(x))
 
@@ -357,16 +369,16 @@ def test_stacked_gradients_come_out_stacked():
 
 
 def test_train_step_refuses_what_is_not_ported():
-    """MoE trains (``tests/test_torch_moe_train.py``); xLSTM, sliding
-    windows and M-RoPE do not yet."""
+    """xLSTM does not train yet; MoE (``tests/test_torch_moe_train.py``),
+    sliding windows and M-RoPE (``tests/test_torch_hybrid_train.py``,
+    ``tests/test_torch_audio_vlm_train.py``) do."""
     with pytest.raises(NotImplementedError):
         make_train_step(get_config("xlstm-1.3b").reduced(),
                         constant_schedule(1e-3))
     _, cfg = _reduced()
-    for bad in (dict(window=64), dict(mrope=True)):
-        with pytest.raises(NotImplementedError):
-            make_train_step(dataclasses.replace(cfg, **bad),
-                            constant_schedule(1e-3))
+    for ok in (dict(window=64), dict(mrope=True)):
+        assert callable(make_train_step(dataclasses.replace(cfg, **ok),
+                                        constant_schedule(1e-3)))
 
 
 def test_loss_decreases_on_synthetic_data():
