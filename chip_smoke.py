@@ -85,8 +85,8 @@ Phases, each printed as one JSON object per line:
    weights: logits must agree and only the card's run launches the
    kernels; then hybrid_parity, gate Y1; then vlm_parity, gate V1; then
    audio_parity, gate A1; then train_parity, gate T2; then
-   moe_train_parity, gate T2m; then the CPU runs of gates T2h, T2v and
-   T2a start in a spawned worker process (``t2_cpu_runs``), which the
+   moe_train_parity, gate T2m; then the CPU runs of gates T2h, T2v, T2a
+   and T2x start in a spawned worker process (``t2_cpu_runs``), which the
    serving phases below, host-bound on one core, leave the other cores
    to (it takes half of them);
 7. serving  — granite-8b at full width and full depth in fp32 with
@@ -122,8 +122,9 @@ Phases, each printed as one JSON object per line:
    and depth in fp32 (335,106,048 parameters, enc_seq 1500) through
    ``GenerationEngine``, under gate A2, gate A3's handoff, a profile of 2
    decode steps, and ``launch.serve.main`` once; then
-   hybrid_train_parity, vlm_train_parity and audio_train_parity: the
-   card runs of gates T2h, T2v and T2a, held to the worker's CPU runs;
+   hybrid_train_parity, vlm_train_parity, audio_train_parity and
+   ssm_train_parity: the card runs of gates T2h, T2v, T2a and T2x, held
+   to the worker's CPU runs;
 10. training — whisper-small released, then minicpm-2b at full width and
    depth in fp32 (2.72 B parameters, AdamW) trained 4 steps at B=1,
    S=2048 through ``repro_torch.launch.train.main``, every layer's
@@ -143,8 +144,10 @@ Phases, each printed as one JSON object per line:
    cut to 4 layers (2,022,211,072 parameters), B=1, 256 patch embeddings
    + 2048 text tokens (gate T3v), and whisper-small at full width and
    depth (335,106,048 parameters), B=2, frames of (2, 1500, 768), S=2048
-   (gate T3a), each 4 steps through the port's ``Trainer``: launches,
-   peak memory beside its prediction, a step's forward, backward and
+   (gate T3a), each 4 steps through the port's ``Trainer``; then
+   ssm_training, xlstm-1.3b at full width cut to 8 layers (gate T3x), 4
+   steps at B=1, S=2048 through ``launch.train.main``: launches, peak
+   memory beside its prediction, a step's forward, backward and
    optimizer ms;
 11. checkpoint — gate C1 on two small trees held on the card; then,
    everything before released, minicpm-2b at full width cut to
@@ -206,7 +209,8 @@ Phases, each printed as one JSON object per line:
 
 The mlstm phase (after moe_gating) holds the mLSTM kernel to gate G1 at
 xlstm-1.3b's widths and reports its two kernels' ptxas registers, spills
-and shared memory, and small_parity also serves a reduced xlstm-1.3b on
+and shared memory, the mlstm_backward phase after it holds the kernel
+under autograd to gate X1, and small_parity also serves a reduced xlstm-1.3b on
 the card and on the CPU in float32 and float64 under gate G2.  The gates'
 bounds are fixed in advance, each derived from a float64 reference:
 
@@ -434,6 +438,61 @@ this script's first run of them:
   The checkpoint, mesh and fleet gates run at ``CKPT_LAYERS`` layers in
   their form and with their limits, every one exact; C1's and M1's
   golden trees are the reduced ones they were.
+
+The xLSTM training bounds (``models.ssm.MLSTMScan``: the mLSTM kernel's
+forward under autograd, its backward autograd of the plain scan's chunk
+recomputed chunk by chunk, no kernel), fixed before this script's first
+run of them:
+
+* X1, ``MLSTMScan`` on the card (phase mlstm_backward), over
+  ``MLSTM_BWD_CASES``: ``MLSTM_CASES`` rows S2048_cache, S300_cache,
+  B2_S512_warm and jax_2x2x256x64, and S2048_empty (B=1, H=4, S=2048,
+  hd=1024 from C = n = 0, m = -1e30, the training case); inputs from
+  ``mlstm_inputs``, the cotangents of h, C_T, n_T and m_T ~ N(0, 1) from a
+  seeded generator.  The forward under grad gives h, C_T, n_T and m_T
+  ``torch.equal`` to ``ops.mlstm_scan`` under no_grad on the same inputs
+  (``csrc/mlstm_scan.cu`` uses no atomics), launches ``mlstm_scan``
+  exactly once, and the backward launches nothing.  With g64 autograd
+  straight through ``mlstm_scan_plain`` in float64 on the card and g32
+  the same in fp32, for each of dq, dk, dv, dlog_i, dlog_f, dC0, dn0 and
+  dm0: max|g - g64| <= 2 max|g32 - g64| + 1e-6 max|g64| (T1's form); a
+  gradient whose g64 is all zero reads all zero.  Printed, not held: the
+  backward's ms at S2048_empty beside the forward kernel's ms and the
+  fp32 plain autograd backward's ms, with a cold L2.
+* T2x, T2's form on G2's reduced xlstm-1.3b at 8 layers
+  (``get_config("xlstm-1.3b").reduced(n_layers=8)``: d=256, vocab 512,
+  4 heads, mLSTM hd 128, layer 7 the sLSTM), B=2, S=2048 (8 chunks),
+  micro-batches 1 and 2, three steps from one state and one batch stream
+  (``t2_inputs``): each step's loss and grad norm, and step 1's gradient
+  leaves (each over its leaf's largest |cpu64| entry), max|card32 -
+  cpu64| <= max(1e-4, k max|cpu32 - cpu64|).  As first written k was 2,
+  T2's own; the first chip run read 1.81 of that bound on an mLSTM
+  layer's ``b_i``.  Before the second, a second witness, the port on the
+  card with the mLSTM forward through the plain scan instead of the
+  kernel, read the same at the gate's inputs (1.81 on leaves, 3.01 on a
+  step-3 loss: 6.02 times cpu32's error) and up to 262 on seed 8's
+  leaves, like the kernel's route; a card run with TF32 matmuls read
+  3667 (``scripts/t2_witness.py``).  So k is 16, twice the largest sound
+  reading rounded up to a power of two, in ``T2_ARCHS``.  A leaf whose
+  cpu64 gradient is all zero (the branch its layer does not run) reads
+  all zero on the card and in both CPU runs.  ``mlstm_scan`` launches
+  exactly 7 x mb x 3 times on the card, nothing else; none on the CPU.
+  The CPU runs go to the smoke's spawned worker, as T2h, T2v and T2a do.
+* T3x, xlstm-1.3b at full width cut to 8 layers (``cut_depth``: 7 mLSTM
+  layers and 1 sLSTM layer; 1,112,279,104 parameters, 17.8 GB at 16 B a
+  parameter), fp32, B=1, S=2048, 4 steps through ``launch.train.main``
+  at lr 3e-4 (at the launcher's 3e-3 its fp32 run leaves the finite
+  numbers, ``T3_ARCHS``): every loss and grad norm finite; ``mlstm_scan`` launched exactly 7 x 4
+  times over the steps, nothing else; on one more gradient pass every
+  leaf finite, in each layer every leaf of the branch it runs (``mlstm``
+  in layers 0-6, ``slstm`` in layer 7) and ``ln1`` not all zero, every
+  leaf of the branch it does not run exactly zero, and ``embed``,
+  ``lm_head`` and ``final_norm`` not all zero.  Printed: one more step
+  timed in its forward, backward and optimizer parts, and the peak beside
+  its prediction (23 GB).
+* X-T5: every earlier gate passes as written (T1-T4, G1-G3, Y1-Y4,
+  V1-V4, A1-A4, R1, T2m, T3m, C1-C5, M1-M4, F1-F4 and D1-D6), with its
+  launch counts unchanged, and the last line is the contract's.
 
 The checkpoint format's bounds, fixed before this script's first run of
 them (every one exact):
@@ -1564,12 +1623,12 @@ def router_gating_backward_phase(torch, flush, build_log: str = ""):
     return res
 
 
-def mlstm_inputs(torch, B, H, S, hd, state, g):
-    """The JAX kernel test's distributions, on the card: q, k (pre-scaled
-    by 1/sqrt(hd)), v, log i ~ N(0,1), log f = log_sigmoid(N(0,1) + 2);
-    the start state "empty" (m = -1e30), "cache" (a serving cache's zeros,
-    m = 0) or "warm" (0.1·N(0,1) memory, m = 0.5)."""
-    dev = "cuda"
+def mlstm_inputs(torch, B, H, S, hd, state, g, dev="cuda"):
+    """The JAX kernel test's distributions, on the card (or ``dev``): q, k
+    (pre-scaled by 1/sqrt(hd)), v, log i ~ N(0,1), log f =
+    log_sigmoid(N(0,1) + 2); the start state "empty" (m = -1e30), "cache"
+    (a serving cache's zeros, m = 0) or "warm" (0.1·N(0,1) memory, m =
+    0.5)."""
     q, k, v = (torch.randn((B, H, S, hd), generator=g, device=dev)
                for _ in range(3))
     li = torch.randn((B, H, S), generator=g, device=dev)
@@ -1709,6 +1768,103 @@ def mlstm_phase(torch, flush, build_log: str):
           "walk_dynamic_smem_bytes": lib.repro_mlstm_walk_smem_bytes(1024),
           "library_ms": None})
     return cases
+
+
+#: gate X1's cases: rows of ``MLSTM_CASES``, and the training case, B=1,
+#: H=4, S=2048, hd=1024 from C = n = 0, m = -1e30 (timed)
+MLSTM_BWD_CASES = [c for c in MLSTM_CASES if c[0] in (
+    "S2048_cache", "S300_cache", "B2_S512_warm", "jax_2x2x256x64")] + [
+    ("S2048_empty", 1, 4, 2048, 1024, "empty")]
+MLSTM_BWD_PARTS = ("dq", "dk", "dv", "dlog_i", "dlog_f", "dC0", "dn0", "dm0")
+
+
+def mlstm_backward_phase(torch, flush, device="cuda", cases=None):
+    """Gate X1: ``MLSTMScan`` (``ops.mlstm_scan`` under grad) over
+    ``MLSTM_BWD_CASES``, inputs from ``mlstm_inputs`` and the cotangents of
+    h, C_T, n_T and m_T ~ N(0, 1) from a seeded generator.  The forward
+    under grad equals ``ops.mlstm_scan`` under no_grad to the bit, and
+    launches the kernel once; the backward launches nothing.  With g64
+    autograd straight through ``mlstm_scan_plain`` in float64 and g32 the
+    same in fp32, each of the eight gradients g holds max|g - g64| <= 2
+    max|g32 - g64| + 1e-6 max|g64|, and reads all zero where g64 does.
+    Printed, not held: at S2048_empty, the backward's ms beside the
+    forward kernel's and the fp32 plain autograd backward's, cold L2.
+    ``device="cpu"`` with small ``cases`` rehearses it on the CPU (no
+    launches, no times)."""
+    from repro_torch.kernels import mlstm_scan as ms
+    from repro_torch.kernels import ops
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    g = torch.Generator(device=device).manual_seed(36)
+    out, timed = {}, None
+    for name, B, H, S, hd, start in cases or MLSTM_BWD_CASES:
+        args = mlstm_inputs(torch, B, H, S, hd, start, g, device)
+        shapes = (args[0].shape, args[5].shape, args[6].shape, args[7].shape)
+        cots = [torch.randn(sh, generator=g, device=device) for sh in shapes]
+        with torch.no_grad():
+            want = ops.mlstm_scan(*args)
+        xs = [a.detach().requires_grad_() for a in args]
+        ops.reset_launch_counts()
+        outs = ops.mlstm_scan(*xs)
+        fwd_counts = ops.launch_counts()
+        grads = torch.autograd.grad(outs, xs, cots, retain_graph=on_card)
+        sync()
+        counts = ops.launch_counts()
+        require(type(outs[0].grad_fn).__name__ == "MLSTMScanBackward",
+                f"X1 {name}: ops.mlstm_scan under grad took "
+                f"{type(outs[0].grad_fn).__name__}")
+        once = {k: int(on_card and k == "mlstm_scan") for k in counts}
+        require(fwd_counts == once and counts == once,
+                f"X1 {name}: launches {fwd_counts} forward, {counts} with "
+                f"the backward, want {once}")
+        require(all(torch.equal(a.detach(), b) for a, b in zip(outs, want)),
+                f"X1 {name}: the forward under grad is not the no-grad one")
+
+        def plain_grads(dtype, keep=False):
+            x = [a.detach().to(dtype).requires_grad_() for a in args]
+            o = ms.mlstm_scan_plain(*x)
+            return x, o, torch.autograd.grad(
+                o, x, [c.to(dtype) for c in cots], retain_graph=keep)
+        g64 = plain_grads(torch.float64)[2]
+        g32 = plain_grads(torch.float32)[2]
+        res = {}
+        for part, a, b, c in zip(MLSTM_BWD_PARTS, grads, g32, g64):
+            require(bool(torch.isfinite(a).all()), f"X1 {name} {part}")
+            err = (a.double() - c).abs().max().item()
+            err32 = (b.double() - c).abs().max().item()
+            scale = c.abs().max().item()
+            bound = 2 * err32 + 1e-6 * scale
+            res[part] = {"err": err, "err_fp32_plain": err32, "bound": bound,
+                         "ratio": err / bound if bound else 0.0,
+                         "g64_all_zero": scale == 0}
+            require(scale > 0 or not bool(a.ne(0).any()),
+                    f"gate X1 fails: {name} {part} is nonzero where g64 is "
+                    "all zero")
+            require(err <= bound, f"gate X1 fails: {name} {part} {err} > "
+                    f"{bound}")
+        res["x1_ratio"] = max(res[p]["ratio"] for p in MLSTM_BWD_PARTS)
+        out[name] = res
+        if on_card and name == "S2048_empty":
+            x32, o32 = plain_grads(torch.float32, keep=True)[:2]
+            timed = {
+                "backward_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    outs, xs, cots, retain_graph=True), iters=5, flush=flush),
+                "kernel_forward_ms": time_ms(
+                    torch, lambda: ms.mlstm_scan_cuda(*args), iters=10,
+                    flush=flush),
+                "plain_fp32_autograd_backward_ms": time_ms(
+                    torch, lambda: torch.autograd.grad(
+                        o32, x32, cots, retain_graph=True), iters=5,
+                    flush=flush)}
+            del x32, o32
+        del args, xs, outs, grads, g64, g32
+    line = {"phase": "mlstm_backward", "gate": "X1", "device": device,
+            "cases": out, "x1_ratio": max(c["x1_ratio"] for c in out.values()),
+            "timed_S2048_empty": timed,
+            "nvidia_smi": nvidia_smi() if on_card else None}
+    emit(line)
+    return line
 
 
 # --------------------------------------------------------------- serving
@@ -2402,11 +2558,32 @@ def moe_train_parity_phase(torch, device="cuda"):
     return out
 
 
-#: T2h, T2v, T2a: arch -> (its reduced config, as Y1, V1 and A1 serve it;
-#: text tokens at S=2048: qwen2-vl's 16 patches + 2032)
-T2_ARCHS = {"hymba-1.5b": ("T2h", HYBRID_REDUCED, 2048),
-            "qwen2-vl-7b": ("T2v", VLM_REDUCED, 2032),
-            "whisper-small": ("T2a", {}, 2048)}
+#: T2h, T2v, T2a, T2x: arch -> (gate, its reduced config, as Y1, V1, A1
+#: and G2 serve it (xlstm-1.3b at 8 layers, so that layer 7 is its
+#: sLSTM), text tokens at S=2048: qwen2-vl's 16 patches + 2032), the
+#: multiple k of the fp32 CPU run's error in the gate's bound
+#: (``t2_ratios``).  T2x's 16 is twice the largest reading of a sound
+#: card run at the gate's inputs, rounded up to a power of two: the port
+#: on the card with the mLSTM forward through the plain scan read 6.02
+#: times cpu32's error (scripts/t2_witness.py)
+T2_ARCHS = {"hymba-1.5b": ("T2h", HYBRID_REDUCED, 2048, 2),
+            "qwen2-vl-7b": ("T2v", VLM_REDUCED, 2032, 2),
+            "whisper-small": ("T2a", {}, 2048, 2),
+            "xlstm-1.3b": ("T2x", {"n_layers": 8}, 2048, 16)}
+
+
+def train_launches(cfg, passes):
+    """The kernels ``passes`` forward-and-backward passes of ``cfg``'s
+    train step launch: the flash forward and backward once per (decoder)
+    layer each, or for xLSTM the mLSTM kernel once per mLSTM layer (its
+    backward launches none, and the sLSTM none)."""
+    from repro_torch.models.decoder import _is_slstm
+
+    if cfg.arch == "ssm":
+        return {"mlstm_scan": passes * sum(
+            not _is_slstm(cfg, i) for i in range(cfg.n_layers))}
+    return {"flash_attention": cfg.n_layers * passes,
+            "flash_attention_bwd": cfg.n_layers * passes}
 
 
 def train_batches(cfg, n_text, B, seed):
@@ -2423,19 +2600,20 @@ def train_batches(cfg, n_text, B, seed):
         yield {**batch, **extra}
 
 
-def t2_inputs(torch, arch, n_text=None, cfg=None):
-    """Gate T2h's, T2v's or T2a's config, its numpy start state and its
-    ``T2_STEPS`` batches (B=2) of ``n_text`` text tokens from
-    ``train_batches``."""
+def t2_inputs(torch, arch, n_text=None, cfg=None, seed=7):
+    """Gate T2h's, T2v's, T2a's or T2x's config, its numpy start state and
+    its ``T2_STEPS`` batches (B=2) of ``n_text`` text tokens from
+    ``train_batches``, both drawn from ``seed``."""
     from repro_torch.configs import get_config
     from repro_torch.params import train_state_to_numpy
     from repro_torch.train import train_state_init
 
-    _, reduced, text = T2_ARCHS[arch]
+    _, reduced, text, _ = T2_ARCHS[arch]
     cfg = cfg or get_config(arch).reduced(**reduced)
     base = train_state_to_numpy(
-        train_state_init(cfg, torch.Generator().manual_seed(7), "cpu"))
-    data = train_batches(cfg, text if n_text is None else n_text, 2, seed=7)
+        train_state_init(cfg, torch.Generator().manual_seed(seed), "cpu"))
+    data = train_batches(cfg, text if n_text is None else n_text, 2,
+                         seed=seed)
     return cfg, base, [next(data) for _ in range(T2_STEPS)]
 
 
@@ -2500,24 +2678,27 @@ def spawn_pool():
 
 def arch_train_parity_phase(torch, arch, device="cuda", n_text=None,
                             cfg=None, cpu_runs=None):
-    """Gates T2h, T2v, T2a: T2's form on the reduced config of ``arch``
-    that Y1, V1 or A1 serves, B=2, S=2048 (qwen2-vl: 16 patches + 2032
-    text tokens), from one state and one batch stream (``t2_inputs``),
-    with 1 and 2 micro-batches, on the card in fp32 and on the CPU in fp32
-    and float64: three steps, each through ``make_train_step``'s
-    ``grads_of`` then its ``update``; step 1's gradient leaves (each over
-    its leaf's largest |cpu64| entry) and each step's loss and grad norm
-    within max(1e-4, 2 max|cpu32 - cpu64|) of cpu64.  The card launches
-    the flash forward and backward once per (decoder) layer per
-    micro-batch per step, L x mb x 3 each, nothing else; the CPU runs
-    launch nothing.  ``cpu_runs`` is ``t2_cpu_runs`` of the same inputs,
-    computed elsewhere (the smoke's worker), else here.  ``device="cpu"``
-    with a short ``n_text`` (and a narrower ``cfg``) rehearses it on the
-    CPU."""
+    """Gates T2h, T2v, T2a, T2x: T2's form on the reduced config of
+    ``arch`` that Y1, V1, A1 or G2 serves, B=2, S=2048 (qwen2-vl: 16
+    patches + 2032 text tokens), from one state and one batch stream
+    (``t2_inputs``), with 1 and 2 micro-batches, on the card in fp32 and
+    on the CPU in fp32 and float64: three steps, each through
+    ``make_train_step``'s ``grads_of`` then its ``update``; step 1's
+    gradient leaves (each over its leaf's largest |cpu64| entry) and each
+    step's loss and grad norm within max(1e-4, k max|cpu32 - cpu64|) of
+    cpu64, k the gate's multiple in ``T2_ARCHS`` (2; T2x 16); a leaf whose
+    cpu64 gradient is all zero (an xLSTM layer's idle branch) all zero in
+    every run.  The card launches the flash forward and backward once per
+    (decoder) layer per micro-batch per step, L x mb x 3 each (xLSTM: the
+    mLSTM kernel once per mLSTM layer, 7 x mb x 3), nothing else
+    (``train_launches``); the CPU runs launch nothing.
+    ``cpu_runs`` is ``t2_cpu_runs`` of the same inputs, computed
+    elsewhere (the smoke's worker), else here.  ``device="cpu"`` with a
+    short ``n_text`` (and a narrower ``cfg``) rehearses it on the CPU."""
     import numpy as np
 
     t0 = time.perf_counter()
-    gate = T2_ARCHS[arch][0]
+    gate, _, _, k = T2_ARCHS[arch]
     cfg, base, batches = t2_inputs(torch, arch, n_text, cfg)
     require(device == "cpu" or cfg.hd == 64,
             f"{gate}: reduced head dim {cfg.hd}")
@@ -2536,17 +2717,18 @@ def arch_train_parity_phase(torch, arch, device="cuda", n_text=None,
                            *runs[k][1:]) for k in ("card32", "cpu32", "cpu64"))
         want = {k: 0 for k in card[2]}
         if device == "cuda":
-            want["flash_attention"] = L * mb * T2_STEPS
-            want["flash_attention_bwd"] = want["flash_attention"]
+            want.update(train_launches(cfg, mb * T2_STEPS))
         require(card[2] == want, f"{gate} mb={mb} card launches {card[2]} "
                 f"!= {want}")
         require(not any(c32[2].values()) and not any(c64[2].values()),
                 f"{gate} mb={mb}: the CPU runs launched kernels")
-        grad_ratio, step_ratio = t2_ratios(card, c32, c64)
+        grad_ratio, step_ratio = t2_ratios(card, c32, c64, k)
         out[f"mb{mb}"] = {
-            "loss_grad_norm": {k: runs[k][1] for k in runs},
+            "loss_grad_norm": {name: run[1] for name, run in runs.items()},
             "grad_leaf_ratio_to_bound_max": max(grad_ratio),
-            "step_ratio_to_bound": step_ratio, "launches_cuda": card[2]}
+            "step_ratio_to_bound": step_ratio, "launches_cuda": card[2],
+            "grad_leaves_all_zero": sum(not bool(c.ne(0).any())
+                                        for c in c64[0])}
         require(max(grad_ratio) <= 1.0,
                 f"gate {gate} fails: mb={mb} gradient leaves {grad_ratio}")
         require(max(max(r) for r in step_ratio) <= 1.0,
@@ -2555,7 +2737,7 @@ def arch_train_parity_phase(torch, arch, device="cuda", n_text=None,
             "config": f"{arch} reduced(L={L}, d={cfg.d_model}, "
             f"H={cfg.n_heads}, Hk={cfg.n_kv_heads}, hd={cfg.hd}, "
             f"window={cfg.window}, vocab={cfg.vocab})", "device": device,
-            "batch": 2, "seq": seq, "steps": T2_STEPS, **out,
+            "batch": 2, "seq": seq, "steps": T2_STEPS, "k": k, **out,
             "seconds": time.perf_counter() - t0}
     emit(line)
     return line
@@ -2572,18 +2754,24 @@ def t2_state(base, dtype, device):
             _cast_tree(base.opt.nu, dtype))), device)
 
 
-def t2_ratios(card, c32, c64):
+def t2_ratios(card, c32, c64, k=2):
     """T2's readings over its bound, for runs (step 1's gradient leaves,
     each step's metrics, ...): each leaf's max|card32 - cpu64| over
-    max(1e-4, 2 max|cpu32 - cpu64|), both over the leaf's largest |cpu64|
-    entry; each step metric's the same without the scale."""
+    max(1e-4, k max|cpu32 - cpu64|), both over the leaf's largest |cpu64|
+    entry; each step metric's the same without the scale.  A leaf whose
+    cpu64 gradient is all zero (a branch the loss does not reach) reads 0
+    when it is all zero in the other runs too, else infinity."""
     grad_ratio = []
     for a, b, c in zip(card[0], c32[0], c64[0]):
         scale = c.abs().max().item()
+        if scale == 0:
+            grad_ratio.append(math.inf if bool(a.ne(0).any())
+                              or bool(b.ne(0).any()) else 0.0)
+            continue
         err = (a - c).abs().max().item() / scale
-        bound = max(1e-4, 2 * (b - c).abs().max().item() / scale)
+        bound = max(1e-4, k * (b - c).abs().max().item() / scale)
         grad_ratio.append(err / bound)
-    step_ratio = [[abs(a - c) / max(1e-4, 2 * abs(b - c))
+    step_ratio = [[abs(a - c) / max(1e-4, k * abs(b - c))
                    for a, b, c in zip(x, y, z)]
                   for x, y, z in zip(card[1], c32[1], c64[1])]
     return grad_ratio, step_ratio
@@ -3646,10 +3834,11 @@ TRAIN_STEPS = 4
 
 
 def named_leaves(tree, prefix="", sep="."):
-    """(path, leaf) of a nested dict of tensors, keys joined by ``sep``."""
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
+    """(path, leaf) of a nested dict of tensors, keys joined by ``sep``; a
+    list (the xLSTM stack) is keyed by its indices."""
+    for k, v in (sorted(tree.items()) if isinstance(tree, dict)
+                 else enumerate(tree)):
+        if isinstance(v, (dict, list)):
             yield from named_leaves(v, f"{prefix}{k}{sep}", sep)
         else:
             yield f"{prefix}{k}", v
@@ -3675,7 +3864,8 @@ def timed_steps(torch, cfg, state, data, device="cuda", n=2):
         loss, _ = model.loss_fn(state.params, cfg, batch)
         sync()
         t1 = time.perf_counter()
-        g = torch.autograd.grad(loss, leaves(state.params))
+        g = torch.autograd.grad(loss, leaves(state.params), allow_unused=True,
+                                materialize_grads=True)
         sync()
         t2 = time.perf_counter()
         g, _ = clip_by_global_norm(list(g), 1.0)
@@ -3763,35 +3953,52 @@ def training_phase(torch):
     return counts, timings[-1]
 
 
-#: T3h, T3v, T3a: arch -> (gate, batch, text tokens, layers kept or None
-#: for full depth, parameters in the tree, predicted peak bytes).  qwen2-vl
-#: keeps 4 of its 28 layers (7,615,487,488 less 24 x 233,053,184
+#: T3h, T3v, T3a, T3x: arch -> (gate, batch, text tokens, layers kept or
+#: None for full depth, parameters in the tree, predicted peak bytes, the
+#: peak lr of the cosine schedule).
+#: qwen2-vl keeps 4 of its 28 layers (7,615,487,488 less 24 x 233,053,184
 #: parameters; all 28 with AdamW would need 122 GB); its text follows 256
-#: patches (S=2304).  The peaks: parameters, gradients and two AdamW
-#: moments at 16 B a parameter, plus the activations the backward keeps
-#: and the logits (``scripts/hymba_block_saved_bytes.py`` for hymba's).
-T3_ARCHS = {"hymba-1.5b": ("T3h", 1, 4096, None, 1_644_856_000, 66e9),
-            "qwen2-vl-7b": ("T3v", 1, 2048, 4, 2_022_211_072, 41e9),
-            "whisper-small": ("T3a", 2, 2048, None, 335_106_048, 24e9)}
+#: patches (S=2304).  xlstm-1.3b keeps 8 of its 48 layers, 7 mLSTM and
+#: its first sLSTM (layer 7): 2 x 50304 x 2048 + 2048 for the embedding,
+#: the head and the final norm, and 8 x 113,232,704 for the layers, each
+#: holding both an mLSTM and an sLSTM tree (all 48 with AdamW would need
+#: 90 GB).  The peaks: parameters, gradients and two AdamW moments at 16
+#: B a parameter, plus the activations the backward keeps and the logits
+#: (``scripts/hymba_block_saved_bytes.py`` for hymba's).  The lr is the
+#: launcher's 3e-3 but for xlstm-1.3b, whose fp32 run from random weights
+#: leaves the finite numbers at it (NaN gradients at step 3 in its mLSTM
+#: gates, on the card and in the plain scan on the CPU, where float64
+#: stays finite; ``scripts/xlstm_lr_probe.py``); at 3e-4 fp32 keeps to
+#: float64's path.
+T3_ARCHS = {"hymba-1.5b": ("T3h", 1, 4096, None, 1_644_856_000, 66e9, 3e-3),
+            "qwen2-vl-7b": ("T3v", 1, 2048, 4, 2_022_211_072, 41e9, 3e-3),
+            "whisper-small": ("T3a", 2, 2048, None, 335_106_048, 24e9, 3e-3),
+            "xlstm-1.3b": ("T3x", 1, 2048, 8, 1_112_279_104, 23e9, 3e-4)}
 #: the layer-stacked subtrees of a decoder and an encoder-decoder
 STACKED = ("blocks.", "enc_blocks.", "dec_blocks.")
 
 
 def arch_training_phase(torch, arch, device="cuda", cfg=None, n_text=None):
-    """Gates T3h, T3v, T3a: ``arch`` at full width (qwen2-vl cut to 4
-    layers), fp32, ``TRAIN_STEPS`` steps with ``launch.train``'s cosine
-    schedule: hymba-1.5b through ``launch.train.main`` (B=1, S=4096: text
-    batches, as JAX's launcher draws); qwen2-vl-7b (B=1, 256 patches on a
-    16 x 16 grid + 2048 text tokens) and whisper-small (B=2, frames of
-    (2, 1500, 768), S=2048) through the port's ``Trainer`` over
-    ``train_batches``.  Every loss and grad norm finite; the flash
-    forward and backward launched once per (decoder) layer per step, L x
-    4 each, nothing else (whisper's encoder and cross-attention launch
-    none).  Then one more gradient pass: the tree holds the parameters
-    the arch's line of ``T3_ARCHS`` says; every gradient leaf finite and
-    not all zero, and every layer-stacked leaf (the Mamba branch's
-    ``A_log``, ``dt_bias``, ``D_skip`` and ``conv_w``, whisper's encoder)
-    nonzero in every layer; and one more step timed in its forward,
+    """Gates T3h, T3v, T3a, T3x: ``arch`` at full width (qwen2-vl cut to 4
+    layers, xlstm-1.3b to 8), fp32, ``TRAIN_STEPS`` steps with
+    ``launch.train``'s cosine schedule at the lr of ``T3_ARCHS`` (3e-3,
+    xlstm-1.3b 3e-4): hymba-1.5b (B=1, S=4096) and
+    xlstm-1.3b (B=1, S=2048; the registry's config cut by ``cut_depth``)
+    through ``launch.train.main``, on text batches, as JAX's launcher
+    draws; qwen2-vl-7b (B=1, 256 patches on a 16 x 16 grid + 2048 text
+    tokens) and whisper-small (B=2, frames of (2, 1500, 768), S=2048)
+    through the port's ``Trainer`` over ``train_batches``.  Every loss
+    and grad norm finite; the flash forward and backward launched once
+    per (decoder) layer per step, L x 4 each (xLSTM: the mLSTM kernel
+    once per mLSTM layer per step, 7 x 4), nothing else (whisper's
+    encoder and cross-attention launch none).  Then one more gradient
+    pass: the tree holds the parameters the arch's line of ``T3_ARCHS``
+    says; every gradient leaf finite and not all zero, and every
+    layer-stacked leaf (the Mamba branch's ``A_log``, ``dt_bias``,
+    ``D_skip`` and ``conv_w``, whisper's encoder) nonzero in every layer;
+    for xLSTM (``xlstm_dead_leaves``) every leaf of the branch a layer
+    runs, and its ``ln1``, not all zero, every leaf of the branch it does
+    not run exactly zero.  Then one more step timed in its forward,
     backward and optimizer parts.  The peak is printed beside its
     prediction.  ``device`` and a reduced ``cfg`` (with a short
     ``n_text``) rehearse it on the CPU."""
@@ -3802,7 +4009,7 @@ def arch_training_phase(torch, arch, device="cuda", cfg=None, n_text=None):
     from repro_torch.train import Trainer, make_train_step, train_state_init
     from repro_torch.tree import leaves
 
-    gate, B, text, layers, n_want, peak_want = T3_ARCHS[arch]
+    gate, B, text, layers, n_want, peak_want, lr = T3_ARCHS[arch]
     full = get_config(arch)
     cfg = cfg or (dataclasses.replace(full, n_layers=layers) if layers
                   else full)
@@ -3814,19 +4021,21 @@ def arch_training_phase(torch, arch, device="cuda", cfg=None, n_text=None):
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    if cfg.arch == "hybrid":
+    if cfg.arch in ("hybrid", "ssm"):
         argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
-                str(B), "--seq", str(n_text)]
+                str(B), "--seq", str(n_text), "--lr", str(lr)]
         if not on_card:
             argv += ["--reduced", "--device", device, "--layers", str(L),
                      "--d-model", str(cfg.d_model), "--vocab",
                      str(cfg.vocab)]
-        hist = launch_train.main(argv)
+        with (cut_depth(arch, L) if on_card and layers
+              else contextlib.nullcontext()):
+            hist = launch_train.main(argv)
         state = None
     else:
         gen = torch.Generator(device=device).manual_seed(34)
         trainer = Trainer(cfg, train_state_init(cfg, gen, device),
-                          make_schedule("cosine", 3e-3, TRAIN_STEPS),
+                          make_schedule("cosine", lr, TRAIN_STEPS),
                           train_batches(cfg, n_text, B, seed=34))
         hist = trainer.run(TRAIN_STEPS, log=None)
         state = trainer.state
@@ -3837,8 +4046,7 @@ def arch_training_phase(torch, arch, device="cuda", cfg=None, n_text=None):
     peak = torch.cuda.max_memory_allocated() if on_card else None
     want = {k: 0 for k in counts}
     if on_card:
-        want["flash_attention"] = want["flash_attention_bwd"] = \
-            L * TRAIN_STEPS
+        want.update(train_launches(cfg, TRAIN_STEPS))
     series = {k: [h[k] for h in hist] for k in ("loss", "grad_norm")}
     require(len(hist) == TRAIN_STEPS, f"{gate}: {len(hist)} steps recorded")
     require(all(math.isfinite(x) for v in series.values() for x in v),
@@ -3857,11 +4065,11 @@ def arch_training_phase(torch, arch, device="cuda", cfg=None, n_text=None):
     data = train_batches(cfg, n_text, B, seed=1)
     batch = {k: torch.as_tensor(v, device=device)
              for k, v in next(data).items()}
-    step = make_train_step(cfg, make_schedule("cosine", 3e-3, TRAIN_STEPS))
+    step = make_train_step(cfg, make_schedule("cosine", lr, TRAIN_STEPS))
     _, _, grads = step.grads_of(state.params, batch)
     del batch
-    bad = {}
-    for name, g in named_leaves(grads):
+    bad = xlstm_dead_leaves(torch, cfg, grads) if cfg.arch == "ssm" else {}
+    for name, g in ([] if cfg.arch == "ssm" else named_leaves(grads)):
         # a layer-stacked leaf must be nonzero in every layer
         alive = (g.flatten(1).ne(0).any(1) if name.startswith(STACKED)
                  else g.ne(0).any()[None])
@@ -3876,19 +4084,79 @@ def arch_training_phase(torch, arch, device="cuda", cfg=None, n_text=None):
     # one timed step: hymba's takes 8-13 s, most of it host launches
     state, timings = timed_steps(torch, cfg, state, data, device, n=1)
     seq = n_text + (cfg.n_patches if cfg.arch == "vlm" else 0)
+    layers_ms = (xlstm_layer_ms(torch, cfg, state.params, B, n_text, device)
+                 if cfg.arch == "ssm" else None)
     emit({"phase": f"{cfg.arch}_training", "gate": gate, "model": cfg.name,
           "reduced": ({"n_layers": [full.n_layers, L]}
                       if L != full.n_layers else None),
           "d_model": cfg.d_model, "params": n_params, "batch": B, "seq": seq,
-          "steps": TRAIN_STEPS, **series, "launches": counts,
+          "steps": TRAIN_STEPS, "lr": lr, **series, "launches": counts,
           "main_wall_s": wall_s,
           "main_tokens_per_s": TRAIN_STEPS * B * seq / wall_s,
           "max_memory_allocated_bytes": peak,
           "max_memory_allocated_bytes_predicted": peak_want if on_card
-          else None, "timed_steps": timings,
+          else None, "timed_steps": timings, "layer_ms": layers_ms,
           "nvidia_smi": nvidia_smi() if on_card else None})
     del state
     return counts, timings[-1]
+
+
+def xlstm_layer_ms(torch, cfg, params, B, S, device="cuda"):
+    """The forward and backward ms of one mLSTM block (layer 0) and one
+    sLSTM block (the first), alone, at the step's (B, S), on a N(0, 1)
+    input, each under grad then ``torch.autograd.grad`` of its sum over
+    the input and its leaves, synchronised at each boundary (host clock;
+    the second of two runs)."""
+    from repro_torch.models import decoder
+    from repro_torch.tree import leaves
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    g = torch.Generator(device=device).manual_seed(36)
+    out = {}
+    for name in ("mlstm", "slstm"):
+        i = next(j for j in range(cfg.n_layers)
+                 if decoder._is_slstm(cfg, j) == (name == "slstm"))
+        blk = params["blocks"][i]
+        x = torch.randn((B, S, cfg.d_model), generator=g,
+                        device=device).requires_grad_(True)
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            y, _ = decoder._run_ssm_block(cfg, blk, x, None, i)
+            sync()
+            t1 = time.perf_counter()
+            torch.autograd.grad(y.sum(), [x] + leaves(blk),
+                                allow_unused=True)
+            sync()
+            t2 = time.perf_counter()
+        out[name] = {"layer": i, "forward_ms": (t1 - t0) * 1e3,
+                     "backward_ms": (t2 - t1) * 1e3}
+        del x, y
+    return out
+
+
+def xlstm_dead_leaves(torch, cfg, grads):
+    """T3x's gradient check on an xLSTM gradient tree: {leaf name: what is
+    wrong} for every leaf not finite, every leaf of the branch a layer
+    runs (``mlstm``, or ``slstm`` in an sLSTM layer) or of its ``ln1``,
+    or outside the layers (``embed``, ``lm_head``, ``final_norm``), that
+    is all zero, and every leaf of the branch a layer does not run that
+    is not exactly zero."""
+    from repro_torch.models.decoder import _is_slstm
+
+    bad = {}
+    for name, g in named_leaves(grads):
+        parts = name.split(".")
+        idle = False
+        if parts[0] == "blocks" and parts[2] in ("mlstm", "slstm"):
+            runs = "slstm" if _is_slstm(cfg, int(parts[1])) else "mlstm"
+            idle = parts[2] != runs
+        finite = bool(torch.isfinite(g).all())
+        nonzero = bool(g.ne(0).any())
+        if not finite or nonzero == idle:
+            bad[name] = {"finite": finite, "idle_branch": idle,
+                         "nonzero": nonzero}
+    return bad
 
 
 #: T3m: qwen2-moe-a2.7b at full width cut to this many of its 24 layers
@@ -5727,6 +5995,7 @@ def main() -> int:
     router_bwd = router_gating_backward_phase(
         torch, flush, logs.get("moe_gating_bwd", ""))
     mlstm = mlstm_phase(torch, flush, logs.get("mlstm_scan", ""))
+    mlstm_backward_phase(torch, flush)
     del flush
     small_parity_phase(torch)
     xlstm_parity_phase(torch)
@@ -5736,8 +6005,8 @@ def main() -> int:
     train_parity_phase(torch)
     moe_train_parity_phase(torch)
     with spawn_pool() as pool:
-        # gates T2h, T2v and T2a: their CPU runs go to a worker while the
-        # card serves (host-bound on one core); the card runs come after
+        # gates T2h, T2v, T2a and T2x: their CPU runs go to a worker while
+        # the card serves (host-bound on one core); the card runs come after
         t2 = {arch: t2_inputs(torch, arch) for arch in T2_ARCHS}
         threads = max(1, (os.cpu_count() or 2) // 2)
         t2_cpu = {arch: pool.apply_async(t2_cpu_runs, (*t2[arch], threads))
@@ -5756,7 +6025,7 @@ def main() -> int:
         serving_vlm_phase(torch)
         release(torch, "serving_audio")
         serving_audio_phase(torch)
-        release(torch, "the T2h, T2v and T2a card runs")
+        release(torch, "the T2h, T2v, T2a and T2x card runs")
         for arch in T2_ARCHS:
             # the worker's runs take ~3 minutes and started ~5 before: a
             # worker that died leaves its result unset, so wait no longer

@@ -15,12 +15,15 @@ with ``w_t = exp(F_t + m_prev - m_t)``, then the state moves to the
 chunk's end.  ``m_t`` is the same maximum whatever the chunk width, so
 every width computes the same function up to rounding.
 
-* :func:`mlstm_scan_plain` is the JAX package's chunk body
-  (``_make_chunk_fn`` and ``_chunk_state_update`` in
-  ``repro/models/ssm.py``) scanned over chunks, by default with the
-  model's chunk rule: ``W = 256`` when it divides S, else one chunk of S.
-  It computes in the inputs' type when that is float64 (the exact
-  reference the card is held to), else in float32.
+* :func:`mlstm_chunk` is the JAX package's chunk body
+  (``_make_chunk_fn`` and, for the state, ``_chunk_state_update``, here
+  :func:`mlstm_chunk_state`, in ``repro/models/ssm.py``).
+  :func:`mlstm_scan_plain` scans it over chunks, by default with the
+  model's chunk rule (:func:`chunk_width`): ``W = 256`` when it divides
+  S, else one chunk of S.  It computes in the inputs' type when that is
+  float64 (the exact reference the card is held to), else in float32.
+  The backward of ``models.ssm.MLSTMScan`` recomputes the same chunk
+  function, chunk by chunk.
 * :func:`mlstm_scan_cuda` launches ``csrc/mlstm_scan.cu``, the
   hand-written replacement of the TPU kernel ``_mlstm_kernel``
   (``repro/kernels/mlstm_scan.py``), in two passes over 64-row chunks:
@@ -74,6 +77,7 @@ _SIGNATURES = {
 }
 
 Scan = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class Prep(NamedTuple):
@@ -100,55 +104,80 @@ def _work_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
+def chunk_width(S: int, chunk: Optional[int] = None) -> int:
+    """The chunk width of a scan over S rows: ``chunk`` when given, else
+    ``run_mlstm``'s rule (``W = 256`` when it divides S, else one chunk
+    of S)."""
+    if S < 1:
+        raise ValueError("mlstm_scan: need S >= 1")
+    if chunk is None:
+        return CHUNK if S % CHUNK == 0 else S
+    if chunk < 1:
+        raise ValueError(f"mlstm_scan: need chunk >= 1, got {chunk}")
+    return chunk
+
+
+def mlstm_chunk_state(k: torch.Tensor, v: torch.Tensor, log_i: torch.Tensor,
+                      log_f: torch.Tensor, C: torch.Tensor, n: torch.Tensor,
+                      m: torch.Tensor) -> State:
+    """The state at a chunk's end from the state (C, n, m) entering it:
+    k, v (B, H, Wc, hd), log gates (B, H, Wc), all in one working type.
+    The JAX package's ``_chunk_state_update``."""
+    F = torch.cumsum(log_f, dim=-1)
+    Ft = F[..., -1]
+    inc = Ft[..., None] - F + log_i                       # F_T - F_s + i_s
+    m_next = torch.maximum(m + Ft, inc.amax(dim=-1))
+    wk = torch.exp(inc - m_next[..., None])
+    carry = torch.exp(m + Ft - m_next)
+    kw = k * wk[..., None]
+    C = carry[..., None, None] * C + kw.transpose(-1, -2) @ v
+    n = carry[..., None] * n + kw.sum(dim=-2)
+    return C, n, m_next
+
+
+def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_i: torch.Tensor, log_f: torch.Tensor, C: torch.Tensor,
+                n: torch.Tensor, m: torch.Tensor) -> Scan:
+    """One chunk of Wc rows from the state (C, n, m) entering it, all in
+    one working type: (h (B, H, Wc, hd), and the state at the chunk's end
+    by :func:`mlstm_chunk_state`).  The JAX package's ``_make_chunk_fn``
+    body; :func:`mlstm_scan_plain` scans it, and ``models.ssm.MLSTMScan``
+    recomputes it chunk by chunk in its backward."""
+    Wc = q.shape[2]
+    tri = torch.tril(torch.ones((Wc, Wc), dtype=torch.bool, device=q.device))
+    F = torch.cumsum(log_f, dim=-1)
+    logD = F[..., :, None] - F[..., None, :] + log_i[..., None, :]
+    logD = torch.where(tri, logD, NEG)                        # (B,H,t,s)
+    m_intra = logD.amax(dim=-1)
+    b_inter = F + m[..., None]
+    m_t = torch.maximum(m_intra, b_inter)
+    scores = (q @ k.transpose(-1, -2)) * torch.exp(logD - m_t[..., None])
+    num = scores @ v
+    den = scores.sum(dim=-1)
+    w_int = torch.exp(b_inter - m_t)
+    num = num + w_int[..., None] * (q @ C)
+    den = den + w_int * (q @ n[..., None])[..., 0]
+    norm = torch.maximum(den.abs(), torch.exp(-m_t))
+    return (num / norm[..., None],
+            *mlstm_chunk_state(k, v, log_i, log_f, C, n, m))
+
+
 def mlstm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      log_i: torch.Tensor, log_f: torch.Tensor,
                      C0: torch.Tensor, n0: torch.Tensor,
                      m0: torch.Tensor, chunk: Optional[int] = None) -> Scan:
     """See the module docstring.  Any S >= 1 and any start state.
     ``chunk`` sets the chunk width (the last chunk may be shorter); by
-    default ``run_mlstm``'s rule."""
+    default ``run_mlstm``'s rule (:func:`chunk_width`)."""
     S = q.shape[2]
-    if S < 1:
-        raise ValueError("mlstm_scan: need S >= 1")
-    if chunk is None:
-        W = CHUNK if S % CHUNK == 0 else S      # run_mlstm's rule
-    elif chunk >= 1:
-        W = chunk
-    else:
-        raise ValueError(f"mlstm_scan: need chunk >= 1, got {chunk}")
+    W = chunk_width(S, chunk)
     dt = _work_dtype(q)
     C, n, m = C0.to(dt), n0.to(dt), m0.to(dt)
-    tri = torch.tril(torch.ones((W, W), dtype=torch.bool, device=q.device))
     hs = []
     for c0 in range(0, S, W):
-        qc, kc, vc = (t[:, :, c0:c0 + W].to(dt) for t in (q, k, v))
-        Wc = qc.shape[2]
-        li = log_i[:, :, c0:c0 + W].to(dt)                    # (B,H,Wc)
-        lf = log_f[:, :, c0:c0 + W].to(dt)
-        F = torch.cumsum(lf, dim=-1)
-        logD = F[..., :, None] - F[..., None, :] + li[..., None, :]
-        logD = torch.where(tri[:Wc, :Wc], logD, NEG)          # (B,H,t,s)
-        m_intra = logD.amax(dim=-1)
-        b_inter = F + m[..., None]
-        m_t = torch.maximum(m_intra, b_inter)
-        scores = (qc @ kc.transpose(-1, -2)) * torch.exp(logD - m_t[..., None])
-        num = scores @ vc
-        den = scores.sum(dim=-1)
-        w_int = torch.exp(b_inter - m_t)
-        num = num + w_int[..., None] * (qc @ C)
-        den = den + w_int * (qc @ n[..., None])[..., 0]
-        norm = torch.maximum(den.abs(), torch.exp(-m_t))
-        hs.append(num / norm[..., None])
-        # the state at the chunk's end
-        Ft = F[..., -1]
-        inc = Ft[..., None] - F + li                          # F_T - F_s + i_s
-        m_next = torch.maximum(m + Ft, inc.amax(dim=-1))
-        wk = torch.exp(inc - m_next[..., None])
-        carry = torch.exp(m + Ft - m_next)
-        kw = kc * wk[..., None]
-        C = carry[..., None, None] * C + kw.transpose(-1, -2) @ vc
-        n = carry[..., None] * n + kw.sum(dim=-2)
-        m = m_next
+        h, C, n, m = mlstm_chunk(*(t[:, :, c0:c0 + W].to(dt)
+                                   for t in (q, k, v, log_i, log_f)), C, n, m)
+        hs.append(h)
     return torch.cat(hs, dim=2), C, n, m
 
 

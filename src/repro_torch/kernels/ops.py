@@ -6,11 +6,14 @@ fallback from one to the other.
 
 Under autograd (grad enabled and an input that requires grad),
 :func:`flash_attention` goes through ``models.chunked.FlashAttention``,
-whose backward is the flash backward kernel, and :func:`router_gating`
+whose backward is the flash backward kernel, :func:`router_gating`
 through ``models.moe.RouterGating``, whose backward is the gating backward
-kernel (each its plain version on the CPU).  The other entries have no
-backward yet: they raise there, on both devices, rather than hand back a
-tensor that cuts the graph.
+kernel (each its plain version on the CPU), and :func:`mlstm_scan`
+through ``models.ssm.MLSTMScan``, whose forward is the mLSTM kernel and
+whose backward recomputes the plain scan's chunks under autograd (no
+kernel, as XLA's VJP of JAX's remat'd chunk scan launches none).  The
+other entries have no backward yet: they raise there, on both devices,
+rather than hand back a tensor that cuts the graph.
 
 Each CUDA wrapper counts its launches; :func:`launch_counts` reads the
 counts and :func:`reset_launch_counts` sets them to 0, so a caller can
@@ -110,7 +113,9 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Chunkwise mLSTM over q, k (pre-scaled by 1/sqrt(hd)), v (B,H,S,hd)
     and log gates (B,H,S) from the state C0 (B,H,hd,hd), n0 (B,H,hd),
     m0 (B,H).  Returns (h (B,H,S,hd), C_T, n_T, m_T)."""
-    _refuse_grad("mlstm_scan", q, k, v, log_i, log_f, C0, n0, m0)
+    if _under_grad(q, k, v, log_i, log_f, C0, n0, m0):
+        from ..models.ssm import MLSTMScan
+        return MLSTMScan.apply(q, k, v, log_i, log_f, C0, n0, m0)
     fn = _mlstm.mlstm_scan_cuda if _route(q) else _mlstm.mlstm_scan_plain
     return fn(q, k, v, log_i, log_f, C0, n0, m0)
 

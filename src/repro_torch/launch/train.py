@@ -7,12 +7,12 @@ Runs on the card (``--device cuda``, the default) with the full config;
 ``--reduced`` trains the smoke-test width (``--layers``, ``--d-model``,
 ``--vocab``) instead, and ``--device cpu`` runs the plain versions on the
 CPU.  Without a card and without ``--device cpu`` it raises.  The port
-trains every config but xLSTM's: dense (minicpm-2b, granite-8b, ...),
-MoE (qwen2-moe-a2.7b, dbrx-132b), hybrid (hymba-1.5b) and vlm
-(qwen2-vl-7b) ones, on the text batches drawn here, as the JAX package's
-launcher does.  Patch embeddings with their positions, or whisper-small's
-frames, come in the batches a caller gives the port's ``Trainer``; the
-launcher draws neither, as JAX's does not.  ``--save PATH``
+trains every config: dense (minicpm-2b, granite-8b, ...), MoE
+(qwen2-moe-a2.7b, dbrx-132b), xLSTM (xlstm-1.3b), hybrid (hymba-1.5b)
+and vlm (qwen2-vl-7b) ones, on the text batches drawn here, as the JAX
+package's launcher does.  Patch embeddings with their positions, or
+whisper-small's frames, come in the batches a caller gives the port's
+``Trainer``; the launcher draws neither, as JAX's does not.  ``--save PATH``
 writes the trained parameters as a checkpoint in the JAX package's format
 (``repro_torch.checkpoint.save_local``), which either package can load.
 """

@@ -25,6 +25,18 @@ The mLSTM keeps the three branches of the JAX package's ``run_mlstm``:
     card): from ``C = n = 0``, ``m = -1e30`` without a state, else from
     the state it is given (a serving cache starts at ``m = 0``, as in JAX).
 
+Under autograd the chunkwise form goes through :class:`MLSTMScan`.  Its
+forward is the same single launch of the kernel over the whole sequence
+that serving makes (the plain scan on the CPU), and it keeps only its
+inputs.  Its backward launches no kernel: it is the twin of XLA's VJP of
+JAX's ``lax.scan(jax.checkpoint(chunk))``.  It recomputes, without grad,
+the state entering each chunk, then walks the chunks in reverse,
+recomputing each one under grad from its entering state
+(``kernels.mlstm_scan.mlstm_chunk``, the plain scan's own chunk) and
+taking its vector-Jacobian product, the state's cotangent carried back to
+the chunk before.  The stabiliser m goes through ``maximum`` and ``amax``,
+whose gradients split ties evenly, as JAX's do.
+
 The sLSTM is the JAX package's sequential recurrence, one step per token.
 Both compute in float32, or in float64 for float64 inputs (the CPU
 reference a float32 run is held to).  The sequence-parallel mLSTM
@@ -40,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import mlstm_scan as _mlstm
 from ..kernels import ops
 from .common import dense_init, rms_norm
 from .config import ModelConfig
@@ -212,6 +225,54 @@ def init_mlstm(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+class MLSTMScan(torch.autograd.Function):
+    """``MLSTMScan.apply(q, k, v, log_i, log_f, C0, n0, m0)``: the values
+    of ``ops.mlstm_scan`` without grad, bit for bit, differentiable in
+    all eight inputs (see the module docstring).  Saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_i: torch.Tensor, log_f: torch.Tensor, C0: torch.Tensor,
+                n0: torch.Tensor, m0: torch.Tensor) -> _mlstm.Scan:
+        fwd = (_mlstm.mlstm_scan_cuda if ops._route(q)
+               else _mlstm.mlstm_scan_plain)
+        ctx.save_for_backward(q, k, v, log_i, log_f, C0, n0, m0)
+        ctx.set_materialize_grads(False)
+        return fwd(q, k, v, log_i, log_f, C0, n0, m0)
+
+    @staticmethod
+    def backward(ctx, dh: Optional[torch.Tensor],
+                 *dstate: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        saved = ctx.saved_tensors
+        xs, start = saved[:5], saved[5:]
+        S = xs[0].shape[2]
+        W = _mlstm.chunk_width(S)
+        dt = _mlstm._work_dtype(xs[0])
+        chunks = [slice(c0, c0 + W) for c0 in range(0, S, W)]
+        # the state entering each chunk, by the plain scan's state update
+        states = [tuple(s.to(dt) for s in start)]
+        for sl in chunks[:-1]:
+            states.append(_mlstm.mlstm_chunk_state(
+                *(t[:, :, sl].to(dt) for t in xs[1:]), *states[-1]))
+        dxs = [torch.zeros_like(t) for t in xs]
+        carry = list(dstate)
+        for sl, state in zip(reversed(chunks), reversed(states)):
+            with torch.enable_grad():
+                ins = [t[:, :, sl].detach().requires_grad_() for t in xs]
+                st = [s.detach().requires_grad_() for s in state]
+                outs = _mlstm.mlstm_chunk(*(t.to(dt) for t in ins), *st)
+            cots = [dh[:, :, sl] if dh is not None else None, *carry]
+            used = [(o, c) for o, c in zip(outs, cots) if c is not None]
+            got = torch.autograd.grad([o for o, _ in used],
+                                      ins + st, [c for _, c in used],
+                                      allow_unused=True,
+                                      materialize_grads=True)
+            for dx, g in zip(dxs, got[:5]):
+                dx[:, :, sl] = g
+            carry = list(got[5:])
+        return (*dxs, *(c.to(s.dtype) for c, s in zip(carry, start)))
+
+
 def _mlstm_decode(q, k, v, log_i, log_f, state: State):
     """One token: q, k, v (B,H,hd); log gates (B,H)."""
     C0, n0, m0 = (s.to(q.dtype) for s in state)
@@ -326,8 +387,10 @@ def run_slstm(p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         c, n, h, m = (s.to(wx.dtype) for s in state)
     hs = []
-    for t in range(S):
-        pre = wx[:, t] + torch.einsum("bhi,hij->bhj", h, R)
+    # one view per step: under grad their backward is one stack, where a
+    # slice per step would write a zero gradient of all of wx per step
+    for wx_t in wx.unbind(dim=1):
+        pre = wx_t + torch.einsum("bhi,hij->bhj", h, R)
         zt, it, ft, ot = torch.split(pre, hd, dim=-1)
         log_f = F.logsigmoid(ft)
         m1 = torch.maximum(log_f + m, it)

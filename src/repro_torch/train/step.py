@@ -9,9 +9,11 @@ summed in float32, in slice order.  The lr is read from the schedule at
 the step count before the update, as in JAX.  Parameters and moments are
 updated in place (see :mod:`..optim.adamw`).
 
-The port trains every arch the JAX package trains but xLSTM (``ssm``),
-which waits for a backward of the mLSTM kernel (``ops.mlstm_scan``): the
-dense, MoE, hybrid and vlm decoders and the encoder-decoder (audio).  An
+The port trains every arch the JAX package trains: the dense, MoE,
+xLSTM (``ssm``), hybrid and vlm decoders and the encoder-decoder (audio).
+A leaf the loss never reaches gets a zero gradient, as JAX's
+``value_and_grad`` gives it (each xLSTM layer holds an ``mlstm`` and an
+``slstm`` tree and runs one), so AdamW still decays it.  An
 MoE config keeps the capacity-factor token drops, as the JAX package's
 training does, and its gating differentiates through
 ``models.moe.RouterGating`` (the router kernel forward, the gating
@@ -20,7 +22,9 @@ or not, differentiates through ``models.chunked.FlashAttention``; a
 hybrid's Mamba recomputes each chunk in the backward; a vlm batch's
 ``vision_embeds`` (B, n_patches, D) and ``positions3`` (3, B, S) and an
 audio batch's ``frames`` (B, enc_seq, d_source) are inputs, split on
-their batch axis under micro-batching.
+their batch axis under micro-batching.  The chunkwise mLSTM
+differentiates through ``models.ssm.MLSTMScan`` (the mLSTM kernel
+forward, each chunk recomputed in the backward).
 """
 
 from __future__ import annotations
@@ -42,14 +46,6 @@ Batch = Dict[str, Union[np.ndarray, torch.Tensor]]
 class TrainState(NamedTuple):
     params: Any
     opt: AdamWState
-
-
-def require_trainable(cfg: ModelConfig) -> None:
-    if cfg.arch == "ssm":
-        raise NotImplementedError(
-            f"training arch 'ssm' ({cfg.name}) is not ported yet: xLSTM "
-            "training waits for a backward of the mLSTM kernel "
-            "(ops.mlstm_scan)")
 
 
 def train_state_init(cfg: ModelConfig, generator: torch.Generator,
@@ -77,6 +73,13 @@ def _micro_split(batch: Dict[str, torch.Tensor], k: int
     return out
 
 
+def _grad(loss: torch.Tensor, flat: List[torch.Tensor]
+          ) -> Tuple[torch.Tensor, ...]:
+    """d loss / d each leaf, zeros for a leaf the loss does not reach."""
+    return torch.autograd.grad(loss, flat, allow_unused=True,
+                               materialize_grads=True)
+
+
 def make_train_step(cfg: ModelConfig, schedule: Callable[[int], float],
                     max_grad_norm: float = 1.0, weight_decay: float = 0.1,
                     microbatches: int = 1) -> Callable:
@@ -85,7 +88,6 @@ def make_train_step(cfg: ModelConfig, schedule: Callable[[int], float],
     step's first half: (loss, metrics, grads) with grads shaped like
     params, before clipping; ``step.update(state, loss, metrics, grads)``
     its second: clip, the lr, AdamW."""
-    require_trainable(cfg)
     ops = ops_for(cfg)
 
     def grads_of(params: Any, batch: Dict[str, torch.Tensor]
@@ -93,7 +95,7 @@ def make_train_step(cfg: ModelConfig, schedule: Callable[[int], float],
         flat = leaves(params)
         if microbatches == 1:
             loss, metrics = ops.loss_fn(params, cfg, batch)
-            grads = list(torch.autograd.grad(loss, flat))
+            grads = list(_grad(loss, flat))
             return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                     unflatten(params, grads))
         micro = _micro_split(batch, microbatches)
@@ -105,7 +107,7 @@ def make_train_step(cfg: ModelConfig, schedule: Callable[[int], float],
         for i in range(microbatches):
             loss, metrics = ops.loss_fn(params, cfg,
                                         {k: v[i] for k, v in micro.items()})
-            for acc, g in zip(grads, torch.autograd.grad(loss, flat)):
+            for acc, g in zip(grads, _grad(loss, flat)):
                 acc.add_(g.to(acc.dtype) / microbatches)
             losses.append(loss.detach())
             ms.append({k: v.detach() for k, v in metrics.items()})

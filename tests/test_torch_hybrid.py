@@ -391,13 +391,14 @@ def test_decode_across_the_wrap_matches_forward(model):
 
 
 def test_training_still_refuses_hybrid(model):
-    """Kept under its first name: hybrid training is ported
-    (``tests/test_torch_hybrid_train.py``), so ``require_trainable`` now
-    takes the reduced hymba, and refuses xLSTM by name."""
-    from repro_torch.train.step import require_trainable
-    require_trainable(model[2])
-    with pytest.raises(NotImplementedError, match="'ssm'"):
-        require_trainable(get_config("xlstm-1.3b").reduced())
+    """Kept under its first name: hybrid and xLSTM training are ported
+    (``tests/test_torch_hybrid_train.py``,
+    ``tests/test_torch_xlstm_train.py``), so ``make_train_step`` takes the
+    reduced hymba and the reduced xLSTM."""
+    from repro_torch.optim import constant_schedule
+    from repro_torch.train.step import make_train_step
+    for cfg in (model[2], get_config("xlstm-1.3b").reduced()):
+        assert callable(make_train_step(cfg, constant_schedule(1e-3)))
 
 
 # ------------------------------------------------------------- the engine

@@ -114,15 +114,15 @@ def test_cached_flash_prefill_refuses_a_nonempty_cache(model):
 
 
 def test_other_archs_are_not_ported_yet():
-    """Every arch serves, and every arch trains but xLSTM: ``make_train_step``
-    refuses only ``ssm``, by name (xlstm-1.3b), and takes the hybrid, vlm
-    and audio archs (``tests/test_torch_hybrid_train.py``,
-    ``tests/test_torch_audio_vlm_train.py``)."""
+    """Kept under its first name: every arch serves, and every arch
+    trains.  ``make_train_step`` takes every config of the registry, the
+    xLSTM one (``tests/test_torch_xlstm_train.py``) and the hybrid, vlm
+    and audio ones (``tests/test_torch_hybrid_train.py``,
+    ``tests/test_torch_audio_vlm_train.py``) among them."""
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.optim import constant_schedule
     from repro_torch.train.step import make_train_step
-    with pytest.raises(NotImplementedError, match="'ssm'.*xlstm-1.3b"):
-        make_train_step(get_config("xlstm-1.3b").reduced(),
-                        constant_schedule(1e-3))
-    for arch in ("hymba-1.5b", "qwen2-vl-7b", "whisper-small"):
-        assert callable(make_train_step(get_config(arch).reduced(),
-                                        constant_schedule(1e-3)))
+    for arch in ARCH_IDS:
+        for cfg in (get_config(arch), get_config(arch).reduced()):
+            assert callable(make_train_step(cfg, constant_schedule(1e-3))), \
+                cfg.name

@@ -369,12 +369,15 @@ def test_stacked_gradients_come_out_stacked():
 
 
 def test_train_step_refuses_what_is_not_ported():
-    """xLSTM does not train yet; MoE (``tests/test_torch_moe_train.py``),
-    sliding windows and M-RoPE (``tests/test_torch_hybrid_train.py``,
-    ``tests/test_torch_audio_vlm_train.py``) do."""
-    with pytest.raises(NotImplementedError):
-        make_train_step(get_config("xlstm-1.3b").reduced(),
-                        constant_schedule(1e-3))
+    """Kept under its first name: nothing is left to refuse.  Every config
+    gives a train step, xLSTM (``tests/test_torch_xlstm_train.py``), MoE
+    (``tests/test_torch_moe_train.py``), sliding windows and M-RoPE
+    (``tests/test_torch_hybrid_train.py``,
+    ``tests/test_torch_audio_vlm_train.py``) among them."""
+    from repro_torch.configs import ARCH_IDS
+    for arch in ARCH_IDS:
+        assert callable(make_train_step(get_config(arch),
+                                        constant_schedule(1e-3))), arch
     _, cfg = _reduced()
     for ok in (dict(window=64), dict(mrope=True)):
         assert callable(make_train_step(dataclasses.replace(cfg, **ok),
@@ -420,8 +423,9 @@ def test_launch_train_refuses_a_missing_card(monkeypatch):
 
 def test_ops_without_a_backward_raise_under_grad():
     """``router_gating`` differentiates through ``RouterGating``
-    (``tests/test_torch_moe_train.py``); the logits-in ``moe_gating``,
-    paged decode and the mLSTM scan still refuse."""
+    (``tests/test_torch_moe_train.py``) and the mLSTM scan through
+    ``MLSTMScan`` (``tests/test_torch_xlstm_train.py``); the logits-in
+    ``moe_gating`` and paged decode still refuse."""
     rng = np.random.default_rng(0)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
     x, router = f(5, 16).requires_grad_(True), f(16, 8)
@@ -429,12 +433,8 @@ def test_ops_without_a_backward_raise_under_grad():
     pool = f(3, 4, 2, 16)
     paged = (q, pool, pool, torch.zeros((2, 2), dtype=torch.int32),
              torch.tensor([3, 5], dtype=torch.int32), f(2, 2, 16), f(2, 2, 16))
-    mq = f(1, 2, 8, 16).requires_grad_(True)
-    mlstm = (mq, f(1, 2, 8, 16), f(1, 2, 8, 16), f(1, 2, 8), -f(1, 2, 8).abs(),
-             f(1, 2, 16, 16), f(1, 2, 16), f(1, 2))
     calls = {"paged_decode_attention": lambda: ops.paged_decode_attention(*paged),
-             "moe_gating": lambda: ops.moe_gating(x @ router, 2),
-             "mlstm_scan": lambda: ops.mlstm_scan(*mlstm)}
+             "moe_gating": lambda: ops.moe_gating(x @ router, 2)}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name} has no backward"):
             call()
